@@ -7,28 +7,52 @@ Run from the root of a checkout on a machine with one CUDA card (Hopper:
 the kernels build for sm_90a). It fails (exit code != 0, no result line)
 without a card, without the repository beside it, or if any phase fails:
 
-1. Device: print the card's name and power limit, build every kernel of
-   the path from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, all at
-   once) and print the build times and the compiler's register report.
-2. Main path at full width: a WT10G-shaped Zipf collection (20,000
-   documents, V = 65,536) is counted into a store with ``count_to_store(
-   "list-scan-segment", ...)`` on the card, then served through
-   ``launch.cooc_serve.serve`` for count, PMI and Dice. Every kernel's launch
-   count is set to 0 just before and read just after; each must be > 0.
-   The store's total count must equal sum_d len_d (len_d - 1) / 2, and its
+1. Device: print the card's name and power limit, build every kernel
+   (``segment_hist``, ``topk_gather``, ``cooc_gram``, ``bitpair``) from
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, all at once) and
+   print the build times and the compiler's register report.
+2. The paths, each driven with every kernel's launch count set to 0 just
+   before and read just after; each kernel a path runs must be > 0.
+   a. Path 1 at full width: a WT10G-shaped Zipf collection (20,000
+      documents, V = 65,536) is counted into a store with ``count_to_store(
+      "list-scan-segment", ...)`` on the card, then served through
+      ``launch.cooc_serve.serve`` for count, PMI and Dice (``segment_hist``,
+      ``topk_gather``).
+   b. Path 2 at full width: the same collection remapped to df-descending
+      IDs is counted with ``count_to_store("auto", ..., df_descending=True)``
+      on the card; the plan must be ``freq-split`` (``cooc_gram`` head,
+      ``segment_hist`` tail).
+   Each store's total count must equal sum_d len_d (len_d - 1) / 2, and its
    six CSR arrays must be byte-identical to a build of the same collection
    with the host ``list-scan``.
+   c. The batch driver: ``launch.cooc_run.run`` at its own defaults on the
+      card must plan ``freq-split`` and write a pairs file byte-identical to
+      a host ``list-scan`` job on its collection; resuming the finished run
+      must launch no kernel.
+   d. The opt-in methods at a reduced size (2,000 documents, V = 4,096):
+      ``list-blocks-gram``, ``multi-scan-matmul`` (``cooc_gram``) and
+      ``list-pairs-bitpacked`` (``bitpair``) must each equal a host
+      ``list-scan`` exactly. At V = 65,536 their quadratic-in-V traversals
+      build 8,256, 512 full-width or 32,896 tiles on the host, past the
+      run's time limit.
 3. Kernels against their plain PyTorch versions on the card, with
-   ``torch.equal`` (tolerance 0): ``segment_hist`` on the head batch of the
-   main path plus ragged, all-padding and V-1 inputs; ``topk_gather`` for
-   count, PMI and Dice at k in {1, 10, 1000} on a query tile of the main
-   path's store, plus all-empty rows, tied rows and k = L. Each kernel is
-   timed with CUDA events beside its plain version, the least time the card
-   could take (bytes over 3.35 TB/s), and one PyTorch library call
-   (``torch.bincount`` / ``torch.topk``) as a yardstick only.
-4. Summary: build docs/hour, top-k QPS and p50/p99 for each score, each
-   kernel's launches and times; then the ``nvidia-smi`` line, the kernels'
-   JSON line, and as the last line ``{"ok": true, "device": ...}``.
+   ``torch.equal`` (tolerance 0): ``segment_hist`` on the head batch of
+   path 1 plus ragged, all-padding and V-1 inputs; ``topk_gather`` for
+   count, PMI and Dice at k in {1, 10, 1000} on a query tile of path 1's
+   store, plus all-empty rows, tied rows and k = L; ``cooc_gram`` on path
+   2's head tile, a ``list-blocks-gram`` tile pair, ragged, all-zero and
+   empty tiles; ``bitpair`` on blocks of path 2's full-width bitmaps plus
+   ragged and all-zero words. Each kernel is timed with CUDA events beside
+   its plain version, the least time the card could take (the larger of
+   bytes over 3.35 TB/s and operations over the card's peak rate for them),
+   and one PyTorch library call (``torch.bincount``, ``torch.topk``,
+   ``torch._int_mm``; none for ``bitpair``) as a yardstick only.
+4. Summary: build docs/hour of both paths beside the host builds, top-k QPS
+   and p50/p99 for each score, where the time of each build goes (stage
+   spans, the device's busy share under the profiler, FREQ-SPLIT's head and
+   tail), each kernel's launches and times; then the ``nvidia-smi`` line,
+   the kernels' JSON line, and as the last line ``{"ok": true, "device":
+   ...}``.
 
 Stores and scratch go to ``.smoke_work/`` in the checkout, removed at exit.
 """
@@ -49,7 +73,12 @@ SRC = os.path.join(HERE, "src")
 WORK = os.path.join(HERE, ".smoke_work")
 
 DOCS, VOCAB, SEED = 20_000, 65_536, 0
+# the opt-in methods' reduced collection (see phase 2d)
+OPT_DOCS, OPT_VOCAB, OPT_MEAN_LEN = 2_000, 4_096, 230
+OPT_IN = ("list-blocks-gram", "multi-scan-matmul", "list-pairs-bitpacked")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor-core rate (data sheet)
+SMS, POPC_PER_CLOCK_PER_SM = 132, 16  # __popc at a quarter of the int32 rate
 SEGMENT_ARRAYS = (
     "row_ptr.bin", "cols.bin", "counts.bin",
     "sym_row_ptr.bin", "sym_cols.bin", "sym_counts.bin",
@@ -66,12 +95,54 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def smi_line() -> str:
+def smi_query(fields: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def smi_line() -> str:
+    return smi_query("name,power.limit")
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, from ``nvidia-smi`` (e.g. "1980 MHz")."""
+    return float(smi_query("clocks.max.sm").split()[0]) * 1e6
+
+
+def reset(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def launched(kernels, must: tuple, path: str) -> dict:
+    """Every kernel's launch count; each kernel in ``must`` must be > 0."""
+    counts = {k.name: k.launches for k in kernels}
+    for name in must:
+        check(counts[name] > 0, f"{path} launched {name} no time")
+    return counts
+
+
+def same_segments(a: str, b: str, what: str) -> None:
+    for name in SEGMENT_ARRAYS:
+        check(
+            filecmp.cmp(os.path.join(a, name), os.path.join(b, name), shallow=False),
+            f"{name} differs between {what}",
+        )
+
+
+def check_total(seg, c) -> int:
+    """The store's total count must equal sum_d len_d (len_d - 1) / 2;
+    returns that sum."""
+    import numpy as np
+
+    total = int(np.fromfile(os.path.join(seg.path, "counts.bin"), np.int64).sum())
+    lens = np.diff(c.doc_ptr)
+    occ = int((lens * (lens - 1) // 2).sum())
+    check(total == occ, f"store total count {total} != {occ} pair occurrences")
+    return occ
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -103,16 +174,13 @@ def max_abs_err(a, b) -> float:
 
 # --------------------------------------------------------------- phase 2
 def main_path(c, kernels) -> dict:
-    import numpy as np
-
     from repro_torch import obs
     from repro_torch.core.cooc import count_to_store
     from repro_torch.launch.cooc_serve import serve
 
     dev_path = os.path.join(WORK, "store_cuda")
     host_path = os.path.join(WORK, "store_host")
-    for k in kernels:
-        k.launches = 0
+    reset(kernels)
     t0 = time.perf_counter()
     with obs.scoped() as reg:  # ingest stage spans, for the breakdown
         store, seg = count_to_store("list-scan-segment", c, dev_path)
@@ -122,30 +190,116 @@ def main_path(c, kernels) -> dict:
                      score=score)
         for score in SCORES
     }
-    launches = {k.name: k.launches for k in kernels}
-    for name, n in launches.items():
-        check(n > 0, f"main path launched {name} no time")
-
-    lens = np.diff(c.doc_ptr)
-    pair_occ = int((lens * (lens - 1) // 2).sum())
-    total = int(np.fromfile(os.path.join(seg.path, "counts.bin"), np.int64).sum())
-    check(total == pair_occ, f"store total count {total} != {pair_occ} pair occurrences")
+    launches = launched(kernels, ("segment_hist", "topk_gather"), "path 1")
+    pair_occ = check_total(seg, c)
 
     t0 = time.perf_counter()
     _, host_seg = count_to_store("list-scan", c, host_path, device="cpu")
     host_s = time.perf_counter() - t0
-    for name in SEGMENT_ARRAYS:
-        check(
-            filecmp.cmp(os.path.join(seg.path, name),
-                        os.path.join(host_seg.path, name), shallow=False),
-            f"{name} differs between the cuda and the host list-scan builds",
-        )
+    same_segments(seg.path, host_seg.path, "the cuda and the host list-scan builds")
     return {
         "store": store, "build_s": build_s, "host_build_s": host_s,
         "nnz": int(seg.nnz), "pair_occurrences": pair_occ,
         "served": served, "launches": launches,
         "stages": reg.stage_totals("ingest/"),
     }
+
+
+def freq_split_path(cd, kernels) -> dict:
+    """Path 2: ``auto`` on the df-remapped collection must plan and run
+    ``freq-split`` on the card, into the host ``list-scan`` store bytes."""
+    from repro_torch import obs
+    from repro_torch.core.cooc import count_to_store
+
+    reset(kernels)
+    t0 = time.perf_counter()
+    with obs.scoped() as reg:
+        _, seg = count_to_store(
+            "auto", cd, os.path.join(WORK, "fs_cuda"), df_descending=True
+        )
+    build_s = time.perf_counter() - t0
+    launches = launched(kernels, ("cooc_gram", "segment_hist"), "path 2")
+    check(seg.meta["source"] == "plan:freq-split",
+          f"path 2 planned {seg.meta['source']}, not freq-split")
+    check_total(seg, cd)
+    t0 = time.perf_counter()
+    _, host_seg = count_to_store(
+        "list-scan", cd, os.path.join(WORK, "fs_host"), device="cpu"
+    )
+    host_s = time.perf_counter() - t0
+    same_segments(seg.path, host_seg.path,
+                  "the cuda freq-split and the host list-scan builds")
+    return {"build_s": build_s, "host_build_s": host_s, "nnz": int(seg.nnz),
+            "launches": launches, "stages": reg.stage_totals("ingest/")}
+
+
+def driver_path(kernels) -> dict:
+    """Path 2c: ``cooc_run.run`` at its defaults on the card, its pairs file
+    against a host list-scan job on the same collection, then a resume of
+    the finished run that must count nothing again."""
+    import inspect
+
+    from repro_torch.core.plan import CountJob, execute_job
+    from repro_torch.data.corpus import synthetic_zipf_collection
+    from repro_torch.data.preprocess import remap_df_descending
+    from repro_torch.launch import cooc_run
+
+    out = os.path.join(WORK, "cooc_run")
+    reset(kernels)
+    t0 = time.perf_counter()
+    res = cooc_run.run(out_dir=out)
+    run_s = time.perf_counter() - t0
+    launches = launched(kernels, ("cooc_gram", "segment_hist"), "cooc_run")
+    check(res["method"] == "freq-split", f"cooc_run planned {res['method']}")
+
+    defaults = inspect.signature(cooc_run.run).parameters
+    c = synthetic_zipf_collection(defaults["num_docs"].default,
+                                  vocab=defaults["vocab"].default,
+                                  mean_len=60, seed=0)
+    cd, _ = remap_df_descending(c)
+    host_pairs = os.path.join(WORK, "host_pairs.bin")
+    t0 = time.perf_counter()
+    execute_job(CountJob(collection=cd, output="pairs-file", out_path=host_pairs,
+                         method="list-scan", device="cpu"))
+    host_s = time.perf_counter() - t0
+    pairs = os.path.join(out, "pairs.bin")
+    check(filecmp.cmp(pairs, host_pairs, shallow=False),
+          "cooc_run's pairs file differs from the host list-scan job's")
+
+    reset(kernels)
+    t0 = time.perf_counter()
+    again = cooc_run.run(out_dir=out, resume=True)
+    resume_s = time.perf_counter() - t0
+    resumed = {k.name: k.launches for k in kernels}
+    check(not any(resumed.values()), f"the resumed run launched {resumed}")
+    check(again["total_count"] == res["total_count"]
+          and filecmp.cmp(pairs, host_pairs, shallow=False),
+          "the resumed run's pairs file differs")
+    return {"docs": cd.num_docs, "vocab": cd.vocab_size, "run_s": run_s,
+            "host_s": host_s, "resume_s": resume_s, "launches": launches,
+            "shards": res["num_shards"], "distinct_pairs": res["distinct_pairs"]}
+
+
+def opt_in_path(kernels) -> dict:
+    """Path 2d: the opt-in kernel methods on the card at a reduced size,
+    each exactly equal to a host list-scan."""
+    import numpy as np
+
+    from repro_torch.core.cooc import dense_counts
+    from repro_torch.data.corpus import synthetic_zipf_collection
+
+    c = synthetic_zipf_collection(OPT_DOCS, vocab=OPT_VOCAB,
+                                  mean_len=OPT_MEAN_LEN, seed=SEED)
+    want = dense_counts("list-scan", c)
+    reset(kernels)
+    secs = {}
+    for method in OPT_IN:
+        t0 = time.perf_counter()
+        got = dense_counts(method, c)
+        secs[method] = time.perf_counter() - t0
+        check(np.array_equal(got, want), f"{method} on the card != host list-scan")
+    launches = launched(kernels, ("cooc_gram", "bitpair"), "the opt-in methods")
+    return {"secs": secs, "launches": launches, "postings": c.num_postings}
 
 
 # --------------------------------------------------------------- phase 3
@@ -263,11 +417,118 @@ def check_topk_gather(store) -> dict:
     return out
 
 
+def bound(bytes_moved: float, ops: float, ops_per_s: float) -> tuple[float, str]:
+    """The least time in ms the card could take for the work, and what binds
+    it: the larger of bytes over the memory rate and operations over their
+    peak rate."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def check_cooc_gram(cd) -> dict:
+    import torch
+
+    from repro_torch.data.index import incidence_tile
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cooc_gram import cooc_gram_cuda
+
+    dev = torch.device("cuda")
+    head = incidence_tile(cd, 0, 2048, 0, 1024, dev)  # path 2's first head tile
+    blk_i = incidence_tile(cd, 0, 2048, 512, 1024, dev)
+    blk_j = incidence_tile(cd, 0, 2048, 1024, 1536, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand(d, m):
+        return (torch.rand((d, m), device=dev, generator=g) < 0.1).to(torch.uint8)
+
+    zeros = torch.zeros((2048, 1024), dtype=torch.uint8, device=dev)
+    cases = {
+        "head tile (2048, 1024) twice": (head, head),
+        "list-blocks tile pair (2048, 512)^2": (blk_i, blk_j),
+        "list-blocks diagonal tile": (blk_i, blk_i),
+        "ragged (1250, 1000) x (1250, 777)": (rand(1250, 1000), rand(1250, 777)),
+        "all zeros": (zeros, zeros),
+        "empty M": (zeros[:, :0].contiguous(), head),
+    }
+    err = 0.0
+    for name, (a, b) in cases.items():
+        got = cooc_gram_cuda(a, b)
+        want = ref.cooc_gram_ref(a, b)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"cooc_gram != plain version on {name}")
+        err = max(err, max_abs_err(got, want))
+
+    D, M = head.shape
+    head_i8 = head.to(torch.int8)
+    head_t = head_i8.t().contiguous()
+    bound_ms, bound_by = bound(D * M + 4 * M * M, 2 * M * M * D, INT8_OPS_PER_S)
+    return {
+        "shape": (D, M, M), "max_abs_err": err,
+        "ms": cuda_ms(lambda: cooc_gram_cuda(head, head), reps=50),
+        "ms_blocks": cuda_ms(lambda: cooc_gram_cuda(blk_i, blk_j), reps=50),
+        "plain_ms": cuda_ms(lambda: ref.cooc_gram_ref(head, head), reps=20),
+        "library_ms": cuda_ms(lambda: torch._int_mm(head_t, head_i8), reps=50),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def check_bitpair(cd, clock_hz: float) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.data.index import incidence_bitpacked
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitpair import bitpair_cuda
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    bits = torch.from_numpy(incidence_bitpacked(cd).view(np.int32)).to(dev)
+    build_s = time.perf_counter() - t0
+    V, W = bits.shape
+    b0, b1, tail = bits[:256], bits[256:512], bits[V - 256:]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand(m, w):
+        return torch.randint(-2**31, 2**31 - 1, (m, w), device=dev, generator=g,
+                             dtype=torch.int32)
+
+    zero_words = rand(64, W)
+    zero_words[:, ::2] = 0
+    cases = {
+        "block 0 x 0": (b0, b0),
+        "block 0 x 1": (b0, b1),
+        "tail block x tail block": (tail, tail),
+        "block 0 x tail block": (b0, tail),
+        "ragged (70, 33) x (130, 33)": (rand(70, 33), rand(130, 33)),
+        "zero words": (zero_words, b1[:100]),
+    }
+    err = 0.0
+    for name, (a, b) in cases.items():
+        got = bitpair_cuda(a, b)
+        want = ref.bitpair_popcount_ref(a, b)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"bitpair != plain version on {name}")
+        err = max(err, max_abs_err(got, want))
+
+    M = b0.shape[0]
+    bound_ms, bound_by = bound(4 * M * W + 4 * M * M, M * M * W,
+                               SMS * POPC_PER_CLOCK_PER_SM * clock_hz)
+    return {
+        "shape": (M, M, W), "max_abs_err": err, "bitmap_build_s": build_s,
+        "ms": cuda_ms(lambda: bitpair_cuda(b0, b0), reps=50),
+        "ms_off_diagonal": cuda_ms(lambda: bitpair_cuda(b0, b1), reps=50),
+        "plain_ms": cuda_ms(lambda: ref.bitpair_popcount_ref(b0, b0), reps=3),
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+        "clock_mhz": clock_hz / 1e6,
+    }
+
+
 # --------------------------------------------------------------- phase 4
 def device_busy(fn) -> tuple[float, float, list]:
-    """``(wall seconds, device seconds, top three device ops)`` of ``fn()``
-    under the profiler; device seconds sum the self time of every operation
-    on the card, and the top ops are ``(name, seconds)``."""
+    """``(wall seconds, device seconds, device ops)`` of ``fn()`` under the
+    profiler; device seconds sum the self time of every operation on the
+    card, and the ops are ``(name, seconds)``, largest first."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -283,7 +544,7 @@ def device_busy(fn) -> tuple[float, float, list]:
          if e.device_type == DeviceType.CUDA),
         key=lambda kv: -kv[1],
     )
-    return wall, sum(t for _, t in ops), ops[:3]
+    return wall, sum(t for _, t in ops), ops
 
 
 def where_time_goes(c, store) -> dict:
@@ -324,6 +585,48 @@ def where_time_goes(c, store) -> dict:
     return out
 
 
+def freq_split_time(cd) -> dict:
+    """Device busy share of path 2's counting stage (``count_freq_split``
+    into a SpillSink) with its kernels' device time; then, on the host
+    clock in one more run of the stage, the stage and the time spent in its
+    head Gram (``_head_gram``) and its tail (``_count_tail``)."""
+    import torch
+
+    from repro_torch.core import hybrid
+    from repro_torch.store import SpillSink
+
+    def count():
+        with SpillSink(VOCAB, spill_dir=os.path.join(WORK, "fs_spill")) as sink:
+            hybrid.count_freq_split(cd, sink)
+
+    wall, busy, ops_ = device_busy(count)
+    kernel_s = {
+        name: sum(t for n, t in ops_ if f"{name}_kernel" in n)
+        for name in ("cooc_gram", "segment_hist")
+    }
+
+    spent = {"stage_s": 0.0, "head_s": 0.0, "tail_s": 0.0}
+
+    def timed(name, fn):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    head, tail = hybrid._head_gram, hybrid._count_tail
+    hybrid._head_gram = timed("head_s", head)
+    hybrid._count_tail = timed("tail_s", tail)
+    try:
+        timed("stage_s", count)()
+    finally:
+        hybrid._head_gram, hybrid._count_tail = head, tail
+    return {"count": (wall, busy, ops_), "kernel_s": kernel_s, **spent}
+
+
 # ------------------------------------------------------------------ main
 def run() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -337,6 +640,7 @@ def run() -> int:
         return 2
 
     from repro_torch.data.corpus import synthetic_zipf_collection
+    from repro_torch.data.preprocess import remap_df_descending
     from repro_torch.kernels import _build, ops
 
     # phase 1: device and kernel builds
@@ -354,29 +658,68 @@ def run() -> int:
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
+    phase_s = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        print(f"[phase] {name}: {phase_s[name]:.2f}s", flush=True)
+        return out
+
     try:
-        # phase 2: the main path at full width
+        # phase 2: the paths
         t0 = time.perf_counter()
         c = synthetic_zipf_collection(DOCS, vocab=VOCAB, seed=SEED)
-        print(f"[data] {DOCS} docs, V={VOCAB}, {c.num_postings} postings "
-              f"in {time.perf_counter() - t0:.2f}s")
-        mp = main_path(c, ops.KERNELS)
+        cd, _ = remap_df_descending(c)
+        print(f"[data] {DOCS} docs, V={VOCAB}, {c.num_postings} postings, "
+              f"remapped by df, in {time.perf_counter() - t0:.2f}s")
+        mp = phase("2a path 1 (list-scan-segment build + serving)",
+                   main_path, c, ops.KERNELS)
         print(f"[main] cuda build {mp['build_s']:.2f}s "
               f"({DOCS / mp['build_s'] * 3600:.0f} docs/hour), "
               f"{mp['nnz']} distinct pairs, total count = "
               f"{mp['pair_occurrences']} pair occurrences; host list-scan "
               f"build {mp['host_build_s']:.2f}s "
               f"({DOCS / mp['host_build_s'] * 3600:.0f} docs/hour); segment "
-              f"arrays identical")
+              f"arrays identical | {smi}")
         for score, st in mp["served"].items():
             print(f"[serve] {score}: {st['topk_qps']} top-k QPS, p50 "
                   f"{st['topk_p50_ms']} ms, p99 {st['topk_p99_ms']} ms | {smi}")
-        print(f"[launches] main path: {json.dumps(mp['launches'])}")
+        fs = phase("2b path 2 (auto -> freq-split build)", freq_split_path,
+                   cd, ops.KERNELS)
+        print(f"[freq-split] auto planned freq-split; cuda build "
+              f"{fs['build_s']:.2f}s ({DOCS / fs['build_s'] * 3600:.0f} "
+              f"docs/hour), {fs['nnz']} distinct pairs, total count = pair "
+              f"occurrences; host list-scan build of the remapped collection "
+              f"{fs['host_build_s']:.2f}s "
+              f"({DOCS / fs['host_build_s'] * 3600:.0f} docs/hour); segment "
+              f"arrays identical | {smi}")
+        dr = phase("2c cooc_run driver", driver_path, ops.KERNELS)
+        print(f"[cooc_run] {dr['docs']} docs, V={dr['vocab']}, {dr['shards']} "
+              f"shards: planned freq-split, {dr['run_s']:.2f}s "
+              f"({dr['docs'] / dr['run_s'] * 3600:.0f} docs/hour), "
+              f"{dr['distinct_pairs']} distinct pairs; pairs file identical to "
+              f"a host list-scan job ({dr['host_s']:.2f}s); resume "
+              f"{dr['resume_s']:.2f}s, no kernel launched | {smi}")
+        oi = phase("2d opt-in methods (reduced)", opt_in_path, ops.KERNELS)
+        print(f"[opt-in] {OPT_DOCS} docs, V={OPT_VOCAB}, mean_len "
+              f"{OPT_MEAN_LEN} ({oi['postings']} postings), each equal to host "
+              f"list-scan: " + ", ".join(
+                  f"{m} {t:.2f}s" for m, t in oi["secs"].items()) + f" | {smi}")
+        paths = {"path 1": mp["launches"], "path 2": fs["launches"],
+                 "cooc_run": dr["launches"], "opt-in": oi["launches"]}
+        for path, counts in paths.items():
+            print(f"[launches] {path}: {json.dumps(counts)}")
 
         # phase 3: kernels against their plain versions, and their times
-        sh = check_segment_hist(c)
-        tk = check_topk_gather(mp["store"])
-        wt = where_time_goes(c, mp["store"])
+        sh = phase("3 segment_hist vs plain", check_segment_hist, c)
+        tk = phase("3 topk_gather vs plain", check_topk_gather, mp["store"])
+        cg = phase("3 cooc_gram vs plain", check_cooc_gram, cd)
+        bp = phase("3 bitpair vs plain", check_bitpair, cd, max_sm_clock_hz())
+        # phase 4: where the time goes
+        wt = phase("4 where path 1's time goes", where_time_goes, c, mp["store"])
+        wf = phase("4 where path 2's time goes", freq_split_time, cd)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -391,25 +734,50 @@ def run() -> int:
               f"{t['plain_ms']:.4f} ms, torch.topk {t['library_ms']:.4f} ms, "
               f"bound {tk['bound_ms']:.4f} ms ({tk['bound_ms'] / t['ms']:.1%} "
               f"of bound) | {smi}")
-    stages = ", ".join(f"{n.split('/', 1)[1]} {s:.2f}s"
-                       for n, s in sorted(mp["stages"].items()))
-    print(f"[where] cuda build stages (inclusive): {stages}")
-    for what, (wall, dev, top) in (("counting stage", wt["count"]),
-                                   ("serving 10 pmi batches", wt["serve"])):
-        tops = "; ".join(f"{n[:48]} {t:.4f} s" for n, t in top)
+    print(f"[cooc_gram] equal to plain on all cases; head tile (D, M, N) = "
+          f"{cg['shape']}: kernel {cg['ms']:.4f} ms, plain (float32 matmul) "
+          f"{cg['plain_ms']:.4f} ms, torch._int_mm {cg['library_ms']:.4f} ms, "
+          f"bound {cg['bound_ms']:.4f} ms by {cg['bound_by']} "
+          f"({cg['bound_ms'] / cg['ms']:.1%} of bound); list-blocks tile pair "
+          f"(2048, 512)^2 {cg['ms_blocks']:.4f} ms | {smi}")
+    print(f"[bitpair] equal to plain on all cases; block 0 x 0 (M, N, W) = "
+          f"{bp['shape']}: kernel {bp['ms']:.4f} ms (0 x 1: "
+          f"{bp['ms_off_diagonal']:.4f} ms), plain (SWAR) {bp['plain_ms']:.4f} "
+          f"ms, no library call, bound {bp['bound_ms']:.4f} ms by "
+          f"{bp['bound_by']} at {bp['clock_mhz']:.0f} MHz "
+          f"({bp['bound_ms'] / bp['ms']:.1%} of bound); bitmaps of the "
+          f"collection built on the host in {bp['bitmap_build_s']:.2f}s | {smi}")
+    for label, st in (("path 1 cuda build", mp["stages"]),
+                      ("path 2 cuda build", fs["stages"])):
+        stages = ", ".join(f"{n.split('/', 1)[1]} {s:.2f}s"
+                           for n, s in sorted(st.items()))
+        print(f"[where] {label} stages (inclusive): {stages}")
+    for what, (wall, dev, ops_) in (("path 1 counting stage", wt["count"]),
+                                    ("path 2 counting stage", wf["count"]),
+                                    ("serving 10 pmi batches", wt["serve"])):
+        tops = "; ".join(f"{n[:48]} {t:.4f} s" for n, t in ops_[:3])
         print(f"[where] {what} under the profiler: wall {wall:.3f} s, device "
               f"busy {dev:.4f} s ({dev / wall:.2%}); top device ops: {tops} "
               f"| {smi}")
+    print(f"[where] path 2 counting stage on the host clock: "
+          f"{wf['stage_s']:.3f} s; head Gram {wf['head_s']:.3f} s "
+          f"({wf['head_s'] / wf['stage_s']:.1%}), tail {wf['tail_s']:.3f} s "
+          f"({wf['tail_s'] / wf['stage_s']:.1%}), the rest (index build, head "
+          f"emission) {wf['stage_s'] - wf['head_s'] - wf['tail_s']:.3f} s, in "
+          f"one run; kernels under the profiler: "
+          f"cooc_gram {wf['kernel_s']['cooc_gram']:.4f} s, segment_hist "
+          f"{wf['kernel_s']['segment_hist']:.4f} s | {smi}")
     print(f"[where] serving batch of 64 (pmi, k=10, rows cached): top-k call "
           f"{wt['batch_ms']:.2f} ms; building its padded tile alone on the "
           f"host {wt['tile_ms']:.2f} ms")
     pmi = tk["per_score"]["pmi"]
+    total = {k.name: sum(p[k.name] for p in paths.values()) for k in ops.KERNELS}
     kernels = [
         {
             "name": "segment_hist", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/segment_hist.cu",
             "replaces": "src/repro/kernels/segment_cooc.py:72",
-            "launches": mp["launches"]["segment_hist"],
+            "launches": total["segment_hist"],
             "max_abs_err": sh["max_abs_err"], "ms": sh["ms"],
             "plain_ms": sh["plain_ms"], "bound_ms": sh["bound_ms"],
             "bound_by": "bytes", "library_ms": sh["library_ms"],
@@ -418,12 +786,31 @@ def run() -> int:
             "name": "topk_gather", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/topk_gather.cu",
             "replaces": "src/repro/kernels/topk_gather.py:132",
-            "launches": mp["launches"]["topk_gather"],
+            "launches": total["topk_gather"],
             "max_abs_err": tk["max_abs_err"], "ms": pmi["ms"],
             "plain_ms": pmi["plain_ms"], "bound_ms": tk["bound_ms"],
             "bound_by": "bytes", "library_ms": pmi["library_ms"],
         },
+        {
+            "name": "cooc_gram", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/cooc_gram.cu",
+            "replaces": "src/repro/kernels/cooc_gram.py:60",
+            "launches": total["cooc_gram"],
+            "max_abs_err": cg["max_abs_err"], "ms": cg["ms"],
+            "plain_ms": cg["plain_ms"], "bound_ms": cg["bound_ms"],
+            "bound_by": cg["bound_by"], "library_ms": cg["library_ms"],
+        },
+        {
+            "name": "bitpair", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bitpair.cu",
+            "replaces": "src/repro/kernels/bitpair.py:50",
+            "launches": total["bitpair"],
+            "max_abs_err": bp["max_abs_err"], "ms": bp["ms"],
+            "plain_ms": bp["plain_ms"], "bound_ms": bp["bound_ms"],
+            "bound_by": bp["bound_by"], "library_ms": bp["library_ms"],
+        },
     ]
+    print(f"[phases] " + ", ".join(f"{n} {t:.1f}s" for n, t in phase_s.items()))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,13 @@ Stores cross between the two through their shared on-disk format
 (docs/formats.md).
 
 The main path: ``Collection`` → ``InvertedIndex``/``DeviceIndex`` →
-``Planner``/``PlanExecutor`` running LIST-SCAN → ``SpillSink`` → CSR segment
-under the store manifest → ``QueryEngine`` top-k by count, PMI or Dice.
-Two hand-written Hopper kernels carry it on the card (``kernels/csrc``):
-``segment_hist`` (the LIST-SCAN accumulator) and ``topk_gather`` (the
-serving score-and-select step). Entry points run on the card unless the
-caller passes ``device="cpu"`` (see ``repro_torch.device``).
+``Planner``/``PlanExecutor`` running LIST-SCAN (or, on df-descending IDs,
+FREQ-SPLIT) → ``SpillSink`` → CSR segment under the store manifest →
+``QueryEngine`` top-k by count, PMI or Dice. Hand-written Hopper kernels
+carry it on the card (``kernels/csrc``): ``segment_hist`` (the LIST-SCAN
+accumulator and the FREQ-SPLIT tail), ``cooc_gram`` (the exact Gram of the
+FREQ-SPLIT head, LIST-BLOCKS and MULTI-SCAN), ``bitpair`` (LIST-PAIRS'
+AND + popcount) and ``topk_gather`` (the serving score-and-select step).
+Entry points run on the card unless the caller passes ``device="cpu"``
+(see ``repro_torch.device``).
 """

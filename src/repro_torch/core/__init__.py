@@ -1,19 +1,25 @@
 """Core: exact term co-occurrence counting (the paper's contribution).
 
-LIST-SCAN on the host (``list-scan``) and on the device (``list-scan-segment``,
-the batched histogram on the ``segment_hist`` kernel), and the typed
-counting-plan API (``specs``/``plan``): the MethodSpec registry with §3 cost
-models, the Planner (``method="auto"``), and the serial PlanExecutor.
+The five paper methods on the host (naive, list-pairs, list-blocks,
+list-scan, multi-scan); their kernel adaptations on the device
+(``list-scan-segment`` on ``segment_hist``, ``list-blocks-gram`` and
+``multi-scan-matmul`` on ``cooc_gram``, ``list-pairs-bitpacked`` on
+``bitpair``); the beyond-paper FREQ-SPLIT hybrid (``cooc_gram`` head,
+``segment_hist`` tail); and the typed counting-plan API (``specs``/``plan``):
+the MethodSpec registry with §3 cost models, the Planner
+(``method="auto"``), and the serial, resumable PlanExecutor.
 
 Entry points::
 
     res = execute_job(CountJob(collection=c, output="store",
                                out_path="/data/store", method="auto"))
     count("list-scan", c, sink)
-    store, seg = count_to_store("list-scan-segment", c, "/data/store")
+    mat = dense_counts("naive", c)            # strict-upper oracle
+    store, seg = count_to_store("auto", cd, "/data/store", df_descending=True)
 """
 
 from repro_torch.core.cooc import METHODS, count, count_to_store, dense_counts
+from repro_torch.core.oracle import brute_force_counts
 from repro_torch.core.plan import (
     CountJob,
     ExecutionResult,
@@ -41,6 +47,7 @@ __all__ = [
     "count",
     "count_to_store",
     "dense_counts",
+    "brute_force_counts",
     "DenseSink",
     "FileSink",
     "StatsSink",

@@ -58,6 +58,7 @@ def count_to_store(
     *,
     memory_budget_pairs: int = 4 << 20,
     num_shards: int = 1,
+    df_descending: bool = False,
     device: str = "cuda",
     **kwargs,
 ):
@@ -68,14 +69,17 @@ def count_to_store(
     store if ``store_path`` is new, else appends a segment (exact incremental
     update). Returns (store, segment).
 
-    ``device`` is where gpu-kind methods run their kernels: the card by
+    ``device`` is where kernel methods run their kernels: the card by
     default (raising when there is none), the host with ``device="cpu"``.
-    ``"auto"`` picks among the methods of that device: ``list-scan-segment``
-    on the card, ``list-scan`` on the host.
+    ``"auto"`` ranks the methods of that device (``Planner.candidates``):
+    ``list-scan-segment`` on the card, the paper methods on the host, and
+    ``freq-split`` on either when ``df_descending`` says the term IDs are
+    df-descending (``data.preprocess.remap_df_descending``).
 
     Example::
 
-        store, seg = count_to_store("list-scan-segment", c, "/data/store")
+        cd, _ = remap_df_descending(c)
+        store, seg = count_to_store("auto", cd, "/data/store", df_descending=True)
     """
     from repro_torch.core.plan import CountJob, Planner
 
@@ -87,6 +91,7 @@ def count_to_store(
         out_path=store_path,
         memory_budget_pairs=memory_budget_pairs,
         num_shards=num_shards,
+        df_descending=df_descending,
         device=device,
         method_kwargs=kwargs,
     )

@@ -155,10 +155,15 @@ def count_list_scan_loop(c: Collection, sink: PairSink) -> dict:
     return {"docs_scanned": docs_scanned}
 
 
-def _device_chunks(idx: DeviceIndex, lo: int, hi: int, launch_tokens: int):
+def _device_chunks(
+    idx: DeviceIndex, lo: int, hi: int, launch_tokens: int, *, lower: bool = False
+):
     """The strict-upper token stream of primaries [lo, hi) as ``(tokens,
     seg)`` int32 chunks on the index's device, each of at most about
     ``launch_tokens`` tokens; ``seg`` is the primary's row in the batch.
+    With ``lower=True`` the stream is strict-lower instead: for each
+    posting, the terms of its document that precede the term (the
+    FREQ-SPLIT tail's column histogram).
 
     The same gather as :func:`_batch_tokens`, in torch ops on the device
     (``repeat_interleave``, ``cumsum``, ``arange``, fancy index): the token
@@ -171,8 +176,12 @@ def _device_chunks(idx: DeviceIndex, lo: int, hi: int, launch_tokens: int):
         return
     dev = idx.terms.device
     docs = idx.docs[t0:t1].to(torch.int64)
-    starts = idx.positions[t0:t1].to(torch.int64) + 1  # past the primary
-    lens = idx.doc_ptr[docs + 1] - starts
+    if lower:
+        starts = idx.doc_ptr[docs]  # the document's first term
+        lens = idx.positions[t0:t1].to(torch.int64) - starts
+    else:
+        starts = idx.positions[t0:t1].to(torch.int64) + 1  # past the primary
+        lens = idx.doc_ptr[docs + 1] - starts
     owners = torch.repeat_interleave(
         torch.arange(hi - lo, dtype=torch.int32, device=dev),
         torch.diff(idx.term_ptr[lo:hi + 1]),

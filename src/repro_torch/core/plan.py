@@ -21,22 +21,25 @@ This is the single entry point every driver and the store builder share:
   ``distinct_pairs`` becomes an upper bound.
 
 ``PlanExecutor`` owns the shard/merge orchestration: WorkTracker leases
-with straggler re-enqueue, idempotent completion, and the final merge into
-the requested output target (``dense`` | ``stats`` | ``pairs-file`` |
-``store``). This package has the serial executor only; checkpoint/resume
-(``ckpt_every``, ``resume``) and the multi-process ``ParallelExecutor`` are
-not ported yet and raise ``NotImplementedError``.
+with straggler re-enqueue, idempotent completion, checkpoint/resume every
+``ckpt_every`` shards (for the spill policy the on-disk run files double as
+checkpoint state), and the final merge into the requested output target
+(``dense`` | ``stats`` | ``pairs-file`` | ``store``). This package has the
+serial executor only; the multi-process ``ParallelExecutor`` is not ported
+yet.
 
-``CountJob.device`` is where methods with a ``device`` parameter (the
-``gpu`` kind, e.g. ``list-scan-segment``) run their kernels: ``"cuda"`` by
-default, ``"cpu"`` for the plain PyTorch path. It also picks what
-``method="auto"`` ranks: the ``gpu`` kind on a CUDA device, the host kind
-on the CPU.
+``CountJob.device`` is where methods with a ``device`` parameter (every kind
+but ``paper``) run their kernels: ``"cuda"`` by default, ``"cpu"`` for the
+plain PyTorch path. It also picks what ``method="auto"`` ranks
+(:meth:`Planner.candidates`): on the CPU the paper methods, as the
+reference package does; on a CUDA device ``list-scan-segment``; on either,
+``freq-split`` as well when ``df_descending``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import os
 import shutil
 import tempfile
@@ -83,7 +86,8 @@ class CountJob:
     memory_budget_pairs: int = 4 << 20     # spill budget (buffered pairs)
     num_shards: int = 1
     dense_vocab_cap: int = 4096            # dense-merge threshold
-    device: str = "cuda"                   # where gpu-kind methods run
+    df_descending: bool = False            # term IDs are df-descending
+    device: str = "cuda"                   # where kernel methods run
     method_kwargs: Mapping = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
@@ -101,6 +105,8 @@ class CountJob:
             raise ValueError("memory_budget_pairs must be >= 1")
         if self.dense_vocab_cap < 1:
             raise ValueError("dense_vocab_cap must be >= 1")
+        if torch.device(self.device).type not in RANKED_KINDS:
+            raise ValueError(f"unsupported device {self.device!r}; have 'cuda', 'cpu'")
         if self.method == "auto":
             if self.method_kwargs:
                 raise ValueError(
@@ -116,6 +122,12 @@ class CountJob:
                 spec.validate_kwargs(self.method_kwargs)
             except (TypeError, ValueError) as e:
                 raise ValueError(f"invalid method_kwargs: {e}") from None
+            if spec.needs_df_descending and not self.df_descending:
+                raise ValueError(
+                    f"method {self.method!r} requires df-descending term IDs "
+                    "(remap with data.preprocess.remap_df_descending and set "
+                    "df_descending=True)"
+                )
 
 
 # ---------------------------------------------------------------------------
@@ -137,7 +149,7 @@ class Plan:
         plan = Planner().plan(job)
         plan.method, plan.sink_policy       # ('list-scan', 'spill')
         plan.describe()["ranking"]          # best-first (method, cost) pairs
-        res = plan.execute(out_dir="/tmp/run")
+        res = plan.execute(out_dir="/tmp/run", ckpt_every=4)
     """
 
     job: CountJob
@@ -174,15 +186,20 @@ class Plan:
 # Planner
 # ---------------------------------------------------------------------------
 
+# the kinds ``method="auto"`` ranks, by device type (``opt-in`` never)
+RANKED_KINDS = {"cpu": ("paper", "hybrid"), "cuda": ("gpu", "hybrid")}
+
 
 class Planner:
     """Turns a CountJob into a Plan using the MethodSpec cost models.
 
     ``method="auto"`` ranks, by their §3 cost models over the collection's
-    statistics, the methods that run where the job runs: the ``gpu`` kind
-    on a CUDA device (the default), the host (``paper``) kind with
-    ``device="cpu"``. An explicit method skips ranking but still gets
-    validated kwargs and a merge policy.
+    statistics, the methods of the job's device (``RANKED_KINDS``): the
+    paper methods with ``device="cpu"`` (the reference package's own
+    candidates), ``list-scan-segment`` on a CUDA device (the default), and
+    on either ``freq-split`` when the job's term IDs are df-descending. The
+    ``opt-in`` kernel adaptations are never ranked. An explicit method skips
+    ranking but still gets validated kwargs and a merge policy.
 
     Example::
 
@@ -197,14 +214,20 @@ class Planner:
     def candidates(self, job: CountJob) -> list[MethodSpec]:
         if job.method != "auto":
             return [self.registry[job.method]]
-        kind = "paper" if torch.device(job.device).type == "cpu" else "gpu"
-        return [spec for spec in self.registry.values() if spec.kind == kind]
+        kinds = RANKED_KINDS[torch.device(job.device).type]
+        return [
+            spec for spec in self.registry.values()
+            if spec.kind in kinds
+            and (job.df_descending or not spec.needs_df_descending)
+        ]
 
     def resolve_kwargs(
         self, spec: MethodSpec, job: CountJob, stats: CollectionStats
     ) -> dict:
         """Spec defaults + job overrides + planner-tuned knobs."""
         kw = spec.resolve_kwargs(job.method_kwargs if job.method != "auto" else None)
+        if "head" in kw and job.method == "auto":
+            kw["head"] = min(kw["head"], stats.vocab_size)
         if "device" in kw and "device" not in job.method_kwargs:
             kw["device"] = job.device
         return kw
@@ -282,12 +305,16 @@ class PlanExecutor:
 
     Work units are document shards behind a WorkTracker (leases, straggler
     re-enqueue, idempotent completion). The merge strategy follows the plan's
-    sink policy. Checkpoint/resume is not ported yet: ``ckpt_every > 0`` or
-    ``resume=True`` raises ``NotImplementedError``.
+    sink policy; checkpoint/resume works for all of them — under the spill
+    policy, completed shards' sorted run files in ``out_dir/spill/`` *are*
+    the bulk checkpoint state, so only tracker + aggregate dicts go through
+    the checkpointer (``repro_torch.checkpoint``).
 
     Example::
 
-        res = PlanExecutor().execute(plan, out_dir="/tmp/run")
+        res = PlanExecutor().execute(plan, out_dir="/tmp/run", ckpt_every=4)
+        # later, after a crash:
+        res = PlanExecutor().execute(plan, out_dir="/tmp/run", resume=True)
     """
 
     def __init__(self, worker: str = "worker0"):
@@ -302,15 +329,11 @@ class PlanExecutor:
         ckpt_every: int = 0,
         resume: bool = False,
     ) -> ExecutionResult:
-        if ckpt_every > 0 or resume:
-            raise NotImplementedError(
-                "checkpoint/resume is not ported to repro_torch yet "
-                "(ckpt_every > 0 or resume=True)"
-            )
         # warm the lazy imports before the root span opens: first-use import
-        # cost (sharding, sinks) is process setup, not ingest stage time —
-        # with it inside the span, a fresh process's stage spans could not
-        # tile the root span's wall time
+        # cost (checkpoint machinery, sharding, sinks) is process setup, not
+        # ingest stage time — with it inside the span, a fresh process's
+        # stage spans could not tile the root span's wall time
+        from repro_torch import checkpoint  # noqa: F401
         from repro_torch.data import preprocess  # noqa: F401
         from repro_torch.runtime import fault  # noqa: F401
         from repro_torch.store import builder  # noqa: F401
@@ -325,10 +348,21 @@ class PlanExecutor:
             output=plan.job.output,
             shards=plan.job.num_shards,
             docs=plan.job.collection.num_docs,
+            resume=resume,
         ):
-            return self._execute(plan, out_dir=out_dir)
+            return self._execute(
+                plan, out_dir=out_dir, ckpt_every=ckpt_every, resume=resume
+            )
 
-    def _execute(self, plan: Plan, *, out_dir: str | None) -> ExecutionResult:
+    def _execute(
+        self,
+        plan: Plan,
+        *,
+        out_dir: str | None,
+        ckpt_every: int,
+        resume: bool,
+    ) -> ExecutionResult:
+        from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
         from repro_torch.data.preprocess import shard_documents
         from repro_torch.runtime.fault import WorkTracker
         from repro_torch.store.builder import SpillSink
@@ -340,6 +374,7 @@ class PlanExecutor:
         workdir = out_dir or tempfile.mkdtemp(prefix="cooc_plan_")
         os.makedirs(workdir, exist_ok=True)
         spill_root = os.path.join(workdir, "spill")
+        ckpt_dir = os.path.join(workdir, "ckpt")
         t0 = time.time()
 
         dense = plan.sink_policy == "dense"
@@ -349,11 +384,30 @@ class PlanExecutor:
         acc = np.zeros((V, V), dtype=np.int64) if dense else None
         agg = {"distinct_pairs": 0, "total_count": 0, "output_bytes": 0}
 
+        step0 = latest_step(ckpt_dir) if resume else None
+        if step0 is not None:
+            like = {"acc": acc} if dense else {"acc": np.zeros(1)}
+            restored, extra = restore_checkpoint(ckpt_dir, step0, like)
+            if dense:
+                acc = np.array(restored["acc"])  # writable copy
+            agg = extra["agg"]
+            tracker = WorkTracker.from_state(extra["tracker"])
         if spill:
-            # only this run's shards may contribute run files
-            shutil.rmtree(spill_root, ignore_errors=True)
+            # Only completed shards of THIS run may contribute run files: a
+            # fresh run wipes the spill root; a resumed run prunes directories
+            # that don't correspond to a completed shard (e.g. left by an
+            # earlier run with different sharding in the same out_dir).
+            if step0 is None:
+                shutil.rmtree(spill_root, ignore_errors=True)
+            else:
+                done_ids = {u[0] for u in tracker.done}
+                for d in glob.glob(os.path.join(spill_root, "shard_*")):
+                    idx = int(os.path.basename(d).split("_")[1])
+                    if idx not in done_ids or idx >= job.num_shards:
+                        shutil.rmtree(d, ignore_errors=True)
 
         reg = obs.get_registry()
+        done_since_ckpt = 0
         while not tracker.finished:
             unit = tracker.claim(self.worker, time.monotonic())
             if unit is None:
@@ -391,8 +445,17 @@ class PlanExecutor:
                         agg["distinct_pairs"] += sink.distinct_pairs  # upper
                         agg["total_count"] += sink.total_count
                         agg["output_bytes"] += sink.output_bytes
+                    done_since_ckpt += 1
             reg.counter("ingest.docs_counted").inc(shards[s].num_docs)
             reg.counter("ingest.shards_done").inc()
+            if ckpt_every and done_since_ckpt >= ckpt_every:
+                save_checkpoint(
+                    ckpt_dir,
+                    len(tracker.done),
+                    {"acc": acc if dense else np.zeros(1)},
+                    extra={"agg": agg, "tracker": tracker.state()},
+                )
+                done_since_ckpt = 0
 
         elapsed = time.time() - t0
         summary = {
@@ -470,8 +533,10 @@ class PlanExecutor:
                 cap_pairs=4 * job.memory_budget_pairs,
             )
         _emit_merged_rows(plan, merged, result)
-        # run files are kept in user-provided out_dirs; temp workdirs are
-        # removed wholesale by execute()
+        # run files are deliberately kept in user-provided out_dirs: together
+        # with the tracker checkpoint they make the run resumable even across
+        # a crash during (or after) this merge; temp workdirs are removed
+        # wholesale by execute().
 
 
 def _dense_rows(upper: np.ndarray):

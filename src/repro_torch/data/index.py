@@ -7,7 +7,8 @@ Plus the accelerator-side representations:
 
 * ``DeviceIndex`` — both indexes as tensors on one device, so the LIST-SCAN
   token gather runs where the ``segment_hist`` kernel reads its input,
-* ``incidence_dense``  — (D, V) 0/1 tile material for a Gram kernel,
+* ``incidence_dense``  — (D, V) 0/1 tile material for a Gram kernel, and
+  ``incidence_tile``, the same as a uint8 tensor on the kernel's device,
 * ``incidence_bitpacked`` — (V, ceil(D/32)) uint32 bitmap material for a
   popcount intersection kernel (LIST-PAIRS adaptation).
 """
@@ -125,6 +126,21 @@ def incidence_dense(
         ts = ts[(ts >= term_lo) & (ts < term_hi)]
         out[i, ts - term_lo] = 1
     return out
+
+
+def incidence_tile(
+    c: Collection, doc_lo: int, doc_hi: int, term_lo: int, term_hi: int, device
+) -> torch.Tensor:
+    """:func:`incidence_dense` of documents [doc_lo, doc_hi) and terms
+    [term_lo, term_hi) as a uint8 tensor on ``device``: the ``cooc_gram``
+    kernel's input (a quarter of float32's bytes on the copy to the card).
+
+    Example::
+
+        tile = incidence_tile(c, 0, 2048, 0, 1024, "cuda")   # (2048, 1024) uint8
+    """
+    tile = incidence_dense(c, doc_lo, doc_hi, term_lo, term_hi, dtype=np.uint8)
+    return torch.from_numpy(tile).to(device)
 
 
 def incidence_bitpacked(

@@ -10,11 +10,15 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import bitpair as _bitpair
+from repro_torch.kernels import cooc_gram as _cooc_gram
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_hist as _segment_hist
 from repro_torch.kernels import topk_gather as _topk_gather
 
-KERNELS = (_segment_hist.KERNEL, _topk_gather.KERNEL)
+KERNELS = (
+    _segment_hist.KERNEL, _topk_gather.KERNEL, _cooc_gram.KERNEL, _bitpair.KERNEL,
+)
 
 
 def _device_of(*tensors: torch.Tensor) -> torch.device:
@@ -84,3 +88,32 @@ def topk_gather(
     return _topk_gather.topk_gather_cuda(
         ids, cnts, df_t, df_n, num_docs=num_docs, score=score, k=k
     )
+
+
+def cooc_gram(b_i: torch.Tensor, b_j: torch.Tensor) -> torch.Tensor:
+    """Exact Gram of 0/1 incidence tiles: uint8 ``(D, M)`` and ``(D, N)`` →
+    int32 ``(M, N)``, ``C = b_iᵀ b_j`` (pass one tensor twice for a
+    diagonal tile).
+
+    Example::
+
+        tile = torch.from_numpy(incidence_dense(c, 0, 2048, 0, 1024, dtype=np.uint8))
+        ops.cooc_gram(tile, tile)          # (1024, 1024) int32
+    """
+    if _device_of(b_i, b_j).type == "cpu":
+        return ref.cooc_gram_ref(b_i, b_j)
+    return _cooc_gram.cooc_gram_cuda(b_i, b_j)
+
+
+def bitpair_popcount(rows_i: torch.Tensor, rows_j: torch.Tensor) -> torch.Tensor:
+    """Intersection counts over bitmaps of 32-bit words carried as int32:
+    ``(M, W)`` and ``(N, W)`` → int32 ``(M, N)``.
+
+    Example::
+
+        bits = torch.from_numpy(incidence_bitpacked(c).view(np.int32))
+        ops.bitpair_popcount(bits[:256], bits[256:512])   # (256, 256) int32
+    """
+    if _device_of(rows_i, rows_j).type == "cpu":
+        return ref.bitpair_popcount_ref(rows_i, rows_j)
+    return _bitpair.bitpair_cuda(rows_i, rows_j)

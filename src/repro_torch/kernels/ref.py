@@ -12,6 +12,10 @@ import torch
 
 SCORES = ("count", "pmi", "dice")
 
+# Gram calls contract over fewer documents than this: float32 holds every
+# partial sum of 0/1 products exactly below 2^24
+GRAM_MAX_DOCS = 1 << 24
+
 
 def segment_hist_ref(
     ids: torch.Tensor,
@@ -83,3 +87,57 @@ def topk_gather_ref(
     s = score_tile(ids, cnts, df_t, df_n, num_docs=num_docs, score=score)
     order = torch.sort(s, dim=1, descending=True, stable=True).indices[:, :k]
     return ids.gather(1, order), s.gather(1, order)
+
+
+def cooc_gram_ref(b_i: torch.Tensor, b_j: torch.Tensor) -> torch.Tensor:
+    """``C = b_iᵀ b_j`` over 0/1 incidence tiles ``(D, M)`` and ``(D, N)``
+    (any dtype holding 0 and 1) → int32 ``(M, N)``.
+
+    A float32 matrix product cast to int32. It is exact: every product is 0
+    or 1 and every partial sum an integer below 2^24, which float32 holds.
+    TF32, where a card would use it for float32 products, keeps 0 and 1
+    exactly and accumulates in float32, so it cannot change the result
+    either. Raises for D >= 2^24.
+
+    Example::
+
+        b = torch.tensor([[1, 1], [0, 1]], dtype=torch.uint8)
+        cooc_gram_ref(b, b)   # tensor([[1, 1], [1, 2]], dtype=torch.int32)
+    """
+    if b_i.shape[0] >= GRAM_MAX_DOCS:
+        raise ValueError(f"D = {b_i.shape[0]} documents: exact only below 2^24")
+    return (b_i.to(torch.float32).t() @ b_j.to(torch.float32)).to(torch.int32)
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit word (the bits of an int32 tensor) as int64:
+    the SWAR bit count on int64, since PyTorch has no popcount operator."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def bitpair_popcount_ref(rows_i: torch.Tensor, rows_j: torch.Tensor) -> torch.Tensor:
+    """Pair intersection sizes over bit-packed posting bitmaps.
+
+    ``rows_i`` ``(M, W)``, ``rows_j`` ``(N, W)``: 32-bit words as int32 (bit
+    d of word w set iff the term occurs in document 32 w + d). Returns int32
+    ``(M, N)`` with ``out[m, n] = Σ_w popcount(rows_i[m, w] & rows_j[n, w])``.
+    Rows of ``rows_i`` go in chunks, so the int64 intermediate stays near
+    2^24 elements.
+
+    Example::
+
+        a = torch.tensor([[0b1011]], dtype=torch.int32)
+        bitpair_popcount_ref(a, a)   # tensor([[3]], dtype=torch.int32)
+    """
+    M, W = rows_i.shape
+    N = rows_j.shape[0]
+    out = torch.empty((M, N), dtype=torch.int32, device=rows_i.device)
+    step = max(1, (1 << 24) // max(1, N * W))
+    for lo in range(0, M, step):
+        both = rows_i[lo:lo + step, None, :] & rows_j[None, :, :]
+        out[lo:lo + step] = popcount32(both).sum(dim=2)
+    return out

@@ -17,6 +17,8 @@ torch = pytest.importorskip("torch")
 from repro.core import cooc as jcooc  # noqa: E402
 from repro.core.list_scan import count_list_scan_segment as jax_segment  # noqa: E402
 from repro.core.oracle import brute_force_counts  # noqa: E402
+from repro.core.plan import CountJob as JCountJob  # noqa: E402
+from repro.core.plan import Planner as JPlanner  # noqa: E402
 from repro.core.types import DenseSink as JDenseSink  # noqa: E402
 from repro.data.corpus import synthetic_zipf_collection  # noqa: E402
 from repro.store import QueryEngine as JQueryEngine  # noqa: E402
@@ -141,11 +143,13 @@ def test_collection_from_numpy_rejects_bad_arrays():
 
 
 def test_planner_keeps_the_gpu_method_opt_in():
-    """On the host, auto picks the host method; the gpu kind runs there
-    only when it is named."""
-    _, c = _pair(40, 30, 8)
+    """On the host, auto picks what the reference planner picks; the gpu
+    kind runs there only when it is named."""
+    jc, c = _pair(40, 30, 8)
     plan = Planner().plan(CountJob(collection=c, output="stats", device="cpu"))
-    assert plan.method == "list-scan"
+    jplan = JPlanner().plan(JCountJob(collection=jc, output="stats"))
+    assert plan.method == jplan.method
+    assert "list-scan-segment" not in dict(plan.ranking)
     plan = Planner().plan(
         CountJob(collection=c, output="dense", method="list-scan-segment", device="cpu")
     )
@@ -154,37 +158,30 @@ def test_planner_keeps_the_gpu_method_opt_in():
     assert np.array_equal(res.counts, cooc.dense_counts("list-scan", c))
 
 
-@pytest.mark.parametrize(
-    "device,method",
-    [("cuda", "list-scan-segment"), ("cuda:0", "list-scan-segment"),
-     ("cpu", "list-scan")],
-)
-def test_auto_ranks_the_methods_of_the_jobs_device(device, method):
+@pytest.mark.parametrize("device", ["cuda", "cuda:0", "cpu"])
+def test_auto_ranks_the_methods_of_the_jobs_device(device):
     """Planning only: on a CUDA device auto picks the kernel path and hands
-    it the job's device; it never picks the host method there."""
-    _, c = _pair(40, 30, 10)
+    it the job's device; on the host it ranks what the reference ranks."""
+    jc, c = _pair(40, 30, 10)
     plan = Planner().plan(CountJob(collection=c, output="stats", device=device))
-    assert plan.method == method
-    assert [m for m, _ in plan.ranking] == [method]
-    if method == "list-scan-segment":
+    if device == "cpu":
+        jplan = JPlanner().plan(JCountJob(collection=jc, output="stats"))
+        assert plan.method == jplan.method
+        assert plan.ranking == jplan.ranking
+    else:
+        assert plan.method == "list-scan-segment"
+        assert [m for m, _ in plan.ranking] == ["list-scan-segment"]
         assert plan.method_kwargs["device"] == device
 
 
 def test_auto_store_on_the_cpu_matches_the_segment_build(tmp_path):
-    _, c = _pair(150, 5000, 11, mean_len=60)
+    jc, c = _pair(150, 5000, 11, mean_len=60)
     _, a = cooc.count_to_store("auto", c, str(tmp_path / "a"), device="cpu")
     _, b = cooc.count_to_store(
         "list-scan-segment", c, str(tmp_path / "b"), device="cpu"
     )
-    assert a.meta["source"] == "plan:list-scan"
+    jplan = JPlanner().plan(JCountJob(collection=jc, output="store",
+                                      out_path=str(tmp_path / "j")))
+    assert a.meta["source"] == f"plan:{jplan.method}"
     assert a.nnz == b.nnz > 0
     assert _same_segments(a.path, b.path)
-
-
-def test_checkpoint_resume_not_ported(tmp_path):
-    _, c = _pair(20, 30, 9)
-    plan = Planner().plan(CountJob(collection=c, output="stats"))
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        plan.execute(out_dir=str(tmp_path), ckpt_every=1)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        plan.execute(out_dir=str(tmp_path), resume=True)

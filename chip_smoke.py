@@ -38,15 +38,21 @@ without a card, without the repository beside it, or if any phase fails:
 3. Kernels against their plain PyTorch versions on the card, with
    ``torch.equal`` (tolerance 0): ``segment_hist`` on the head batch of
    path 1 plus ragged, all-padding and V-1 inputs; ``topk_gather`` for
-   count, PMI and Dice at k in {1, 10, 1000} on a query tile of path 1's
-   store, plus all-empty rows, tied rows and k = L; ``cooc_gram`` on path
-   2's head tile, a ``list-blocks-gram`` tile pair, ragged, all-zero and
+   count, PMI and Dice at k in {1, 10, 1000, L} on a query tile of path 1's
+   store, plus all-empty rows, tied rows, k = L, a row of equal scores and
+   one whose k-th score ties across the cluster's slice boundaries, rows of
+   1,000 slots and PMI scores of +0.0; ``cooc_gram`` on path 2's head tile,
+   a ``list-blocks-gram`` tile pair, ``cooc_run``'s head tile, a skinny
+   MULTI-SCAN pair, ragged D, M and N, all-ones, all-zero, one-tensor and
    empty tiles; ``bitpair`` on blocks of path 2's full-width bitmaps plus
-   ragged and all-zero words. Each kernel is timed with CUDA events beside
-   its plain version, the least time the card could take (the larger of
-   bytes over 3.35 TB/s and operations over the card's peak rate for them),
-   and one PyTorch library call (``torch.bincount``, ``torch.topk``,
-   ``torch._int_mm``; none for ``bitpair``) as a yardstick only.
+   ragged and all-zero words. Each kernel is timed two ways, per call by
+   CUDA events around a loop of calls (host work per call included where
+   it outlasts the kernel; the kernels JSON line's times) and as device
+   time under the profiler, beside its plain version, the least time the card could take (the larger of bytes over
+   3.35 TB/s and operations over the card's peak rate for them), and one
+   PyTorch library call (``torch.bincount``, ``torch.topk`` at k = 10,
+   1,000 and 4,096, ``torch._int_mm`` at the head, ``cooc_run`` and
+   MULTI-SCAN shapes; none for ``bitpair``) as a yardstick only.
 4. Summary: build docs/hour of both paths beside the host builds, top-k QPS
    and p50/p99 for each score, where the time of each build goes (stage
    spans, the device's busy share under the profiler, FREQ-SPLIT's head and
@@ -146,8 +152,10 @@ def check_total(seg, c) -> int:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` on the card, by CUDA events, after one
-    warm-up call."""
+    """Mean milliseconds of ``fn()`` on the card, by CUDA events around a
+    loop of ``reps`` calls, after one warm-up call. Where a call's host work
+    (argument checks, allocation, the launch) outlasts its kernels, the card
+    waits for it, and that wait is counted."""
     import torch
 
     fn()
@@ -160,6 +168,29 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean milliseconds the card spends on ``fn()``: the device time of
+    every operation it launches, under the profiler, over ``reps`` calls
+    after one warm-up call. The host's work per call is not counted."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    _, dev_s, _ = device_busy(lambda: [fn() for _ in range(reps)])
+    return dev_s / reps * 1e3
+
+
+def both_ms(fn, reps: int) -> tuple[float, float]:
+    """``(cuda_ms, device_ms)`` of ``fn()``: per call by CUDA events (the
+    method of the earlier kernel times, and the one the kernels JSON line
+    reports) and the device time alone."""
+    return cuda_ms(fn, reps), device_ms(fn, reps)
+
+
+def show(t: tuple[float, float]) -> str:
+    return f"{t[0]:.4f} ms (device {t[1]:.4f})"
 
 
 def max_abs_err(a, b) -> float:
@@ -275,7 +306,7 @@ def driver_path(kernels) -> dict:
     check(again["total_count"] == res["total_count"]
           and filecmp.cmp(pairs, host_pairs, shallow=False),
           "the resumed run's pairs file differs")
-    return {"docs": cd.num_docs, "vocab": cd.vocab_size, "run_s": run_s,
+    return {"cd": cd, "docs": cd.num_docs, "vocab": cd.vocab_size, "run_s": run_s,
             "host_s": host_s, "resume_s": resume_s, "launches": launches,
             "shards": res["num_shards"], "distinct_pairs": res["distinct_pairs"]}
 
@@ -347,11 +378,11 @@ def check_segment_hist(c) -> dict:
     return {
         "tokens": n,
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: segment_hist_cuda(
+        "ms": both_ms(lambda: segment_hist_cuda(
             ids, seg, num_rows=rows, vocab=VOCAB, out=grid), reps=20),
-        "plain_ms": cuda_ms(lambda: ref.segment_hist_ref(
+        "plain_ms": both_ms(lambda: ref.segment_hist_ref(
             ids, seg, rows, VOCAB, out=grid), reps=5),
-        "library_ms": cuda_ms(lambda: torch.bincount(
+        "library_ms": both_ms(lambda: torch.bincount(
             keys, minlength=rows * VOCAB), reps=5),
         "bound_ms": (8 * n + 4 * rows * VOCAB) / HBM_BYTES_PER_S * 1e3,
     }
@@ -385,11 +416,36 @@ def check_topk_gather(store) -> dict:
     full_ids = np.sort(rng.choice(4096, size=(4, 128)), axis=1)
     k_eq_l = small(full_ids, rng.integers(1, 4, size=(4, 128)),
                    rng.integers(1, 50, size=4), rng.integers(1, 50, size=(4, 128)))
-    cases = [(f"main tile k={k}", tile, min(k, L)) for k in (1, 10, 1000)]
+    # rows the radix select must get right across the cluster's slices:
+    # every score equal across a 65,536-slot row; ties of the k-th score
+    # on both sides of slice boundaries; all padding; rows of 1,000 slots
+    # (one block, not a multiple of a slice); PMI scores of +0.0
+    wide = np.tile(np.arange(65_536), (3, 1))
+    wide[2] = -1
+    wide_c = np.where(wide >= 0, 3, 0)
+    wide_c[1, ::97] = 9
+    for edge in (8192, 16_384, 57_344):
+        wide_c[1, edge - 40:edge + 40] = 5
+    straddle = small(wide, wide_c, np.full(3, 7), np.where(wide >= 0, 11, 1))
+    above = int((wide_c[1] == 9).sum())
+    odd = small(rng.integers(-1, 5000, (8, 1000)), rng.integers(0, 9, (8, 1000)),
+                rng.integers(1, 60, 8), rng.integers(1, 60, (8, 1000)))
+    pc = rng.integers(1, 8, (2, 20_000))
+    pdf = rng.integers(1, 8, (2, 20_000))
+    pz = rng.random((2, 20_000)) < 0.3
+    num_docs = max(store.num_docs, 1)
+    pdf[pz] = pc[pz] * (num_docs // 2)  # c D / (2 df_n) == 1 for even D
+    zero = small(np.tile(np.arange(20_000), (2, 1)), pc, [2, 2], pdf)
+    check(bool((ref.score_tile(*zero, num_docs=num_docs, score="pmi") == 0)
+               .any()), "the PMI case holds no +0.0 score")
+    cases = [(f"main tile k={k}", tile, min(k, L)) for k in (1, 10, 1000, L)]
     cases += [("all-empty rows", empty, 4), ("tied rows", tied, 16),
               ("k = L", k_eq_l, 128)]
+    cases += [(f"ties across slices k={k}", straddle, k)
+              for k in (1, above + 1, above + 60, 65_536)]
+    cases += [(f"L = 1000 k={k}", odd, k) for k in (10, 1000)]
+    cases += [(f"PMI +0.0 scores k={k}", zero, k) for k in (100, 20_000)]
     err = 0.0
-    num_docs = max(store.num_docs, 1)
     for score in SCORES:
         for name, args, k in cases:
             gi, gs = topk_gather_cuda(*args, num_docs=num_docs, score=score, k=k)
@@ -402,19 +458,30 @@ def check_topk_gather(store) -> dict:
     check(ti[0].tolist() == list(range(10, 26)), "tied row not in slot order")
 
     out = {"B": B, "L": L, "k": 10, "max_abs_err": err, "per_score": {}}
+    # k = 4,096: topk_stream's k in the thousands
+    k_big, k_sort = min(1000, L), min(4096, L)
     for score in SCORES:
         scored = ref.score_tile(*tile, num_docs=num_docs, score=score)
         out["per_score"][score] = {
-            "ms": cuda_ms(lambda: topk_gather_cuda(
-                *tile, num_docs=num_docs, score=score, k=10), reps=20),
-            "ms_k1000": cuda_ms(lambda: topk_gather_cuda(
-                *tile, num_docs=num_docs, score=score, k=min(1000, L)), reps=3),
-            "plain_ms": cuda_ms(lambda: ref.topk_gather_ref(
+            "ms": both_ms(lambda: topk_gather_cuda(
+                *tile, num_docs=num_docs, score=score, k=10), reps=50),
+            "ms_k1000": both_ms(lambda: topk_gather_cuda(
+                *tile, num_docs=num_docs, score=score, k=k_big), reps=50),
+            "plain_ms": both_ms(lambda: ref.topk_gather_ref(
                 *tile, num_docs=num_docs, score=score, k=10), reps=5),
-            "library_ms": cuda_ms(lambda: torch.topk(scored, 10, dim=1), reps=20),
+            "library_ms": both_ms(lambda: torch.topk(scored, 10, dim=1), reps=50),
+            "library_ms_k1000": both_ms(
+                lambda: torch.topk(scored, k_big, dim=1), reps=50),
+            "ms_k4096": both_ms(lambda: topk_gather_cuda(
+                *tile, num_docs=num_docs, score=score, k=k_sort), reps=20),
+            "library_ms_k4096": both_ms(
+                lambda: torch.topk(scored, k_sort, dim=1), reps=20),
         }
     out["bound_ms"] = (12 * B * L + 4 * B + 8 * B * 10) / HBM_BYTES_PER_S * 1e3
+    out["bound_ms_k1000"] = (
+        (12 * B * L + 4 * B + 8 * B * k_big) / HBM_BYTES_PER_S * 1e3)
     return out
+
 
 
 def bound(bytes_moved: float, ops: float, ops_per_s: float) -> tuple[float, str]:
@@ -426,7 +493,7 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float) -> tuple[float, str]
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def check_cooc_gram(cd) -> dict:
+def check_cooc_gram(cd, run_cd) -> dict:
     import torch
 
     from repro_torch.data.index import incidence_tile
@@ -437,17 +504,30 @@ def check_cooc_gram(cd) -> dict:
     head = incidence_tile(cd, 0, 2048, 0, 1024, dev)  # path 2's first head tile
     blk_i = incidence_tile(cd, 0, 2048, 512, 1024, dev)
     blk_j = incidence_tile(cd, 0, 2048, 1024, 1536, dev)
+    # cooc_run's first shard (1,250 documents) against its 1,024 head terms
+    run_head = incidence_tile(run_cd, 0, 1250, 0, 1024, dev)
+    # a MULTI-SCAN pass: 128 primary terms against the full width
+    prim = incidence_tile(cd, 0, 2048, 0, 128, dev)
+    full = incidence_tile(cd, 0, 2048, 0, cd.vocab_size, dev)
     g = torch.Generator(device=dev).manual_seed(SEED)
 
-    def rand(d, m):
-        return (torch.rand((d, m), device=dev, generator=g) < 0.1).to(torch.uint8)
+    def rand(d, m, p=0.1):
+        return (torch.rand((d, m), device=dev, generator=g) < p).to(torch.uint8)
 
     zeros = torch.zeros((2048, 1024), dtype=torch.uint8, device=dev)
+    ones = torch.ones((2048, 256), dtype=torch.uint8, device=dev)
+    wide = rand(2048, 2048, 0.2)
     cases = {
         "head tile (2048, 1024) twice": (head, head),
         "list-blocks tile pair (2048, 512)^2": (blk_i, blk_j),
         "list-blocks diagonal tile": (blk_i, blk_i),
         "ragged (1250, 1000) x (1250, 777)": (rand(1250, 1000), rand(1250, 777)),
+        "ragged (1001, 1000) x (1001, 777)": (rand(1001, 1000, 0.3), rand(1001, 777, 0.3)),
+        "ragged D (2047, 528) x (2047, 272)": (rand(2047, 528, 0.3), rand(2047, 272, 0.3)),
+        "cooc_run head tile (1250, 1024) twice": (run_head, run_head),
+        "skinny (2048, 128) x (2048, 8192)": (prim, full[:, :8192].contiguous()),
+        "all ones (2048, 256) twice": (ones, ones),
+        "one tensor (2048, 2048) twice": (wide, wide),
         "all zeros": (zeros, zeros),
         "empty M": (zeros[:, :0].contiguous(), head),
     }
@@ -458,19 +538,39 @@ def check_cooc_gram(cd) -> dict:
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"cooc_gram != plain version on {name}")
         err = max(err, max_abs_err(got, want))
+    check(bool((cooc_gram_cuda(ones, ones) == 2048).all()),
+          "cooc_gram on all-ones tiles: a count is not D")
 
-    D, M = head.shape
-    head_i8 = head.to(torch.int8)
-    head_t = head_i8.t().contiguous()
-    bound_ms, bound_by = bound(D * M + 4 * M * M, 2 * M * M * D, INT8_OPS_PER_S)
-    return {
-        "shape": (D, M, M), "max_abs_err": err,
-        "ms": cuda_ms(lambda: cooc_gram_cuda(head, head), reps=50),
-        "ms_blocks": cuda_ms(lambda: cooc_gram_cuda(blk_i, blk_j), reps=50),
-        "plain_ms": cuda_ms(lambda: ref.cooc_gram_ref(head, head), reps=20),
-        "library_ms": cuda_ms(lambda: torch._int_mm(head_t, head_i8), reps=50),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-    }
+    def int_mm(a, b):
+        """``torch._int_mm`` on the same tiles as int8, the contraction
+        padded with zero documents to a multiple of 8 (its requirement),
+        before the timed call."""
+        pad = -a.shape[0] % 8
+        a8 = torch.nn.functional.pad(a, (0, 0, 0, pad)).to(torch.int8)
+        b8 = torch.nn.functional.pad(b, (0, 0, 0, pad)).to(torch.int8)
+        at = a8.t().contiguous()
+        return lambda: torch._int_mm(at, b8)
+
+    def timed(a, b, reps=50):
+        D, M = a.shape
+        N = b.shape[1]
+        bound_ms, bound_by = bound(D * M + (0 if a is b else D * N) + 4 * M * N,
+                                   2 * M * N * D, INT8_OPS_PER_S)
+        return {
+            "shape": (D, M, N), "bound_ms": bound_ms, "bound_by": bound_by,
+            "ms": both_ms(lambda: cooc_gram_cuda(a, b), reps=reps),
+            "library_ms": both_ms(int_mm(a, b), reps=reps),
+        }
+
+    out = timed(head, head)
+    out.update({
+        "max_abs_err": err,
+        "ms_blocks": both_ms(lambda: cooc_gram_cuda(blk_i, blk_j), reps=50),
+        "plain_ms": both_ms(lambda: ref.cooc_gram_ref(head, head), reps=20),
+        "run_head": timed(run_head, run_head),
+        "multi_scan": timed(prim, full, reps=20),
+    })
+    return out
 
 
 def check_bitpair(cd, clock_hz: float) -> dict:
@@ -516,9 +616,9 @@ def check_bitpair(cd, clock_hz: float) -> dict:
                                SMS * POPC_PER_CLOCK_PER_SM * clock_hz)
     return {
         "shape": (M, M, W), "max_abs_err": err, "bitmap_build_s": build_s,
-        "ms": cuda_ms(lambda: bitpair_cuda(b0, b0), reps=50),
-        "ms_off_diagonal": cuda_ms(lambda: bitpair_cuda(b0, b1), reps=50),
-        "plain_ms": cuda_ms(lambda: ref.bitpair_popcount_ref(b0, b0), reps=3),
+        "ms": both_ms(lambda: bitpair_cuda(b0, b0), reps=50),
+        "ms_off_diagonal": both_ms(lambda: bitpair_cuda(b0, b1), reps=50),
+        "plain_ms": both_ms(lambda: ref.bitpair_popcount_ref(b0, b0), reps=3),
         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
         "clock_mhz": clock_hz / 1e6,
     }
@@ -715,7 +815,7 @@ def run() -> int:
         # phase 3: kernels against their plain versions, and their times
         sh = phase("3 segment_hist vs plain", check_segment_hist, c)
         tk = phase("3 topk_gather vs plain", check_topk_gather, mp["store"])
-        cg = phase("3 cooc_gram vs plain", check_cooc_gram, cd)
+        cg = phase("3 cooc_gram vs plain", check_cooc_gram, cd, dr["cd"])
         bp = phase("3 bitpair vs plain", check_bitpair, cd, max_sm_clock_hz())
         # phase 4: where the time goes
         wt = phase("4 where path 1's time goes", where_time_goes, c, mp["store"])
@@ -724,28 +824,38 @@ def run() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
 
     print(f"[segment_hist] equal to plain on all cases; head batch "
-          f"{sh['tokens']} tokens: kernel {sh['ms']:.4f} ms, plain "
-          f"{sh['plain_ms']:.4f} ms, bincount {sh['library_ms']:.4f} ms, "
-          f"bound {sh['bound_ms']:.4f} ms ({sh['bound_ms'] / sh['ms']:.1%} of "
+          f"{sh['tokens']} tokens: kernel {show(sh['ms'])}, plain "
+          f"{show(sh['plain_ms'])}, bincount {show(sh['library_ms'])}, bound "
+          f"{sh['bound_ms']:.4f} ms ({sh['bound_ms'] / sh['ms'][0]:.1%} of "
           f"bound) | {smi}")
     for score, t in tk["per_score"].items():
         print(f"[topk_gather] {score} B={tk['B']} L={tk['L']} k=10: kernel "
-              f"{t['ms']:.4f} ms (k=1000: {t['ms_k1000']:.4f} ms), plain "
-              f"{t['plain_ms']:.4f} ms, torch.topk {t['library_ms']:.4f} ms, "
-              f"bound {tk['bound_ms']:.4f} ms ({tk['bound_ms'] / t['ms']:.1%} "
-              f"of bound) | {smi}")
+              f"{show(t['ms'])}, plain {show(t['plain_ms'])}, torch.topk "
+              f"{show(t['library_ms'])}, bound {tk['bound_ms']:.4f} ms "
+              f"({tk['bound_ms'] / t['ms'][0]:.1%} of bound); k=1000: kernel "
+              f"{show(t['ms_k1000'])}, torch.topk {show(t['library_ms_k1000'])}, "
+              f"bound {tk['bound_ms_k1000']:.4f} ms "
+              f"({tk['bound_ms_k1000'] / t['ms_k1000'][0]:.1%} of bound); "
+              f"k=4096: kernel {show(t['ms_k4096'])}, torch.topk "
+              f"{show(t['library_ms_k4096'])} | {smi}")
     print(f"[cooc_gram] equal to plain on all cases; head tile (D, M, N) = "
-          f"{cg['shape']}: kernel {cg['ms']:.4f} ms, plain (float32 matmul) "
-          f"{cg['plain_ms']:.4f} ms, torch._int_mm {cg['library_ms']:.4f} ms, "
+          f"{cg['shape']}: kernel {show(cg['ms'])}, plain (float32 matmul) "
+          f"{show(cg['plain_ms'])}, torch._int_mm {show(cg['library_ms'])}, "
           f"bound {cg['bound_ms']:.4f} ms by {cg['bound_by']} "
-          f"({cg['bound_ms'] / cg['ms']:.1%} of bound); list-blocks tile pair "
-          f"(2048, 512)^2 {cg['ms_blocks']:.4f} ms | {smi}")
+          f"({cg['bound_ms'] / cg['ms'][0]:.1%} of bound); list-blocks tile "
+          f"pair (2048, 512)^2 {show(cg['ms_blocks'])} | {smi}")
+    for label, t in (("cooc_run head tile", cg["run_head"]),
+                     ("multi-scan pass", cg["multi_scan"])):
+        print(f"[cooc_gram] {label} (D, M, N) = {t['shape']}: kernel "
+              f"{show(t['ms'])}, torch._int_mm {show(t['library_ms'])}, bound "
+              f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
+              f"({t['bound_ms'] / t['ms'][0]:.1%} of bound) | {smi}")
     print(f"[bitpair] equal to plain on all cases; block 0 x 0 (M, N, W) = "
-          f"{bp['shape']}: kernel {bp['ms']:.4f} ms (0 x 1: "
-          f"{bp['ms_off_diagonal']:.4f} ms), plain (SWAR) {bp['plain_ms']:.4f} "
-          f"ms, no library call, bound {bp['bound_ms']:.4f} ms by "
+          f"{bp['shape']}: kernel {show(bp['ms'])} (0 x 1: "
+          f"{show(bp['ms_off_diagonal'])}), plain (SWAR) {show(bp['plain_ms'])}, "
+          f"no library call, bound {bp['bound_ms']:.4f} ms by "
           f"{bp['bound_by']} at {bp['clock_mhz']:.0f} MHz "
-          f"({bp['bound_ms'] / bp['ms']:.1%} of bound); bitmaps of the "
+          f"({bp['bound_ms'] / bp['ms'][0]:.1%} of bound); bitmaps of the "
           f"collection built on the host in {bp['bitmap_build_s']:.2f}s | {smi}")
     for label, st in (("path 1 cuda build", mp["stages"]),
                       ("path 2 cuda build", fs["stages"])):
@@ -778,35 +888,35 @@ def run() -> int:
             "source": "src/repro_torch/kernels/csrc/segment_hist.cu",
             "replaces": "src/repro/kernels/segment_cooc.py:72",
             "launches": total["segment_hist"],
-            "max_abs_err": sh["max_abs_err"], "ms": sh["ms"],
-            "plain_ms": sh["plain_ms"], "bound_ms": sh["bound_ms"],
-            "bound_by": "bytes", "library_ms": sh["library_ms"],
+            "max_abs_err": sh["max_abs_err"], "ms": sh["ms"][0],
+            "plain_ms": sh["plain_ms"][0], "bound_ms": sh["bound_ms"],
+            "bound_by": "bytes", "library_ms": sh["library_ms"][0],
         },
         {
             "name": "topk_gather", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/topk_gather.cu",
             "replaces": "src/repro/kernels/topk_gather.py:132",
             "launches": total["topk_gather"],
-            "max_abs_err": tk["max_abs_err"], "ms": pmi["ms"],
-            "plain_ms": pmi["plain_ms"], "bound_ms": tk["bound_ms"],
-            "bound_by": "bytes", "library_ms": pmi["library_ms"],
+            "max_abs_err": tk["max_abs_err"], "ms": pmi["ms"][0],
+            "plain_ms": pmi["plain_ms"][0], "bound_ms": tk["bound_ms"],
+            "bound_by": "bytes", "library_ms": pmi["library_ms"][0],
         },
         {
             "name": "cooc_gram", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/cooc_gram.cu",
             "replaces": "src/repro/kernels/cooc_gram.py:60",
             "launches": total["cooc_gram"],
-            "max_abs_err": cg["max_abs_err"], "ms": cg["ms"],
-            "plain_ms": cg["plain_ms"], "bound_ms": cg["bound_ms"],
-            "bound_by": cg["bound_by"], "library_ms": cg["library_ms"],
+            "max_abs_err": cg["max_abs_err"], "ms": cg["ms"][0],
+            "plain_ms": cg["plain_ms"][0], "bound_ms": cg["bound_ms"],
+            "bound_by": cg["bound_by"], "library_ms": cg["library_ms"][0],
         },
         {
             "name": "bitpair", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/bitpair.cu",
             "replaces": "src/repro/kernels/bitpair.py:50",
             "launches": total["bitpair"],
-            "max_abs_err": bp["max_abs_err"], "ms": bp["ms"],
-            "plain_ms": bp["plain_ms"], "bound_ms": bp["bound_ms"],
+            "max_abs_err": bp["max_abs_err"], "ms": bp["ms"][0],
+            "plain_ms": bp["plain_ms"][0], "bound_ms": bp["bound_ms"],
             "bound_by": bp["bound_by"], "library_ms": bp["library_ms"],
         },
     ]

@@ -89,6 +89,29 @@ def topk_gather_ref(
     return ids.gather(1, order), s.gather(1, order)
 
 
+def order_key(s: torch.Tensor) -> torch.Tensor:
+    """The 32-bit order key ``topk_gather``'s kernel gives each score, as
+    int64 in ``[0, 2^32)``: key order is score order, so a stable sort by
+    key, descending, is ``topk_gather_ref``'s order. int32 counts flip
+    their sign bit; float32 scores map negative values to their complement
+    and positive ones past 2^31, with -0.0 and +0.0 one key and every NaN
+    the largest key (where ``torch.sort`` puts NaN).
+
+    Example::
+
+        order_key(torch.tensor([-0.0, 0.0, float("-inf")]))
+        # tensor([2147483648, 2147483648, 8388607])
+    """
+    if s.dtype == torch.int32:
+        return s.to(torch.int64) + 2**31
+    if s.dtype != torch.float32:
+        raise ValueError(f"scores must be int32 or float32, got {s.dtype}")
+    bits = torch.where(s == 0, 0.0, s).view(torch.int32).to(torch.int64)
+    bits = bits & 0xFFFFFFFF
+    key = torch.where(bits >= 2**31, 0xFFFFFFFF - bits, bits + 2**31)
+    return torch.where(torch.isnan(s), 0xFFFFFFFF, key)
+
+
 def cooc_gram_ref(b_i: torch.Tensor, b_j: torch.Tensor) -> torch.Tensor:
     """``C = b_iᵀ b_j`` over 0/1 incidence tiles ``(D, M)`` and ``(D, N)``
     (any dtype holding 0 and 1) → int32 ``(M, N)``.

@@ -78,6 +78,79 @@ def test_topk_gather_equals_plain(cuda, score):
         assert torch.equal(gi, wi) and torch.equal(gs, ws), k
 
 
+def _serving_tile(dev, B, L, seed, fill=0.6):
+    rng = np.random.default_rng(seed)
+    ids = np.where(rng.random((B, L)) < fill, rng.integers(0, 1 << 20, (B, L)), -1)
+    return _on(
+        dev, ids, np.where(ids >= 0, rng.integers(1, 40, (B, L)), 0),
+        rng.integers(1, 500, B), np.where(ids >= 0, rng.integers(1, 500, (B, L)), 1),
+    )
+
+
+def _assert_topk_equal(tile, num_docs, score, k):
+    gi, gs = topk_gather_cuda(*tile, num_docs=num_docs, score=score, k=k)
+    wi, ws = ref.topk_gather_ref(*tile, num_docs=num_docs, score=score, k=k)
+    assert torch.equal(gi, wi) and torch.equal(gs, ws), (score, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 1000, 65_536])
+@pytest.mark.parametrize("score", SCORES)
+def test_topk_gather_serving_tile_equals_plain(cuda, score, k):
+    """The serving shape: 64 rows of 65,536 slots (clusters of 8 blocks)."""
+    tile = _serving_tile(cuda, 64, 65_536, seed=k)
+    tile[0][5] = -1  # an all-padding row
+    _assert_topk_equal(tile, 1_000_000, score, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("score", SCORES)
+def test_topk_gather_ties_across_slices(cuda, score):
+    """Row 0: every score equal, so ties straddle every slice of the
+    cluster. Row 1: the k-th score ties on both sides of slice boundaries
+    (8,192 slots a slice). Row 2: all padding."""
+    B, L = 3, 65_536
+    ids = np.tile(np.arange(L), (B, 1))
+    ids[2] = -1
+    cnts = np.where(ids >= 0, 3, 0)
+    cnts[1, ::97] = 9
+    for edge in (8192, 16_384, 57_344):
+        cnts[1, edge - 40:edge + 40] = 5
+    tile = _on(cuda, ids, cnts, np.full(B, 7), np.where(ids >= 0, 11, 1))
+    above = int((cnts[1] == 9).sum())
+    for k in (1, 10, above + 1, above + 60, above + 200, 30_000, L):
+        _assert_topk_equal(tile, 5000, score, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [8, 1000, 65_536, 150_001])
+@pytest.mark.parametrize("score", SCORES)
+def test_topk_gather_row_lengths(cuda, score, L):
+    """Rows of any length: one block (L = 8, 1,000), clusters whose last
+    slice is short, and L = 150,001, where keys are recomputed from the
+    tile each pass and, at k = L, winner lists go to scratch."""
+    tile = _serving_tile(cuda, 4, L, seed=L, fill=0.9)
+    for k in sorted({1, min(L, 10), min(L, 1000), L}):
+        _assert_topk_equal(tile, 123_457, score, k)
+
+
+@pytest.mark.cuda
+def test_topk_gather_pmi_zero_scores(cuda):
+    """c·D == df_t·df_n scores +0.0 (log 1): such slots tie in column order
+    with each other, between positive and negative scores."""
+    L = 20_000
+    rng = np.random.default_rng(9)
+    cnts = rng.integers(1, 8, (2, L))
+    df_n = rng.integers(1, 8, (2, L))
+    zero = rng.random((2, L)) < 0.3
+    df_n[zero] = 50 * cnts[zero]  # c 100 == 2 * 50 c
+    tile = _on(cuda, np.tile(np.arange(L), (2, 1)), cnts, [2, 2], df_n)
+    s = ref.score_tile(*tile, num_docs=100, score="pmi")
+    assert int((s == 0).sum()) == int(zero.sum())
+    for k in (1, 100, int((s > 0).sum(dim=1).max()) + 50, L):
+        _assert_topk_equal(tile, 100, "pmi", k)
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     ids, seg = _on(cuda, np.zeros(8), np.zeros(8))
@@ -114,6 +187,35 @@ def test_cooc_gram_equals_plain(cuda, d, m, n, p):
     bj = torch.from_numpy((rng.random((d, n)) < p).astype(np.uint8)).to(cuda)
     assert torch.equal(cooc_gram_cuda(bi, bj), ref.cooc_gram_ref(bi, bj))
     assert torch.equal(cooc_gram_cuda(bi, bi), ref.cooc_gram_ref(bi, bi))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "d,m,n,p",
+    [(1001, 1000, 777, 0.3), (2047, 528, 272, 0.3), (1250, 1024, 1024, 0.1),
+     (2048, 128, 8192, 0.05), (2048, 256, 256, 1.0)],
+)
+def test_cooc_gram_tensor_core_shapes(cuda, d, m, n, p):
+    """Ragged D, M and N (byte-copied and 16-byte-copied tiles), the
+    cooc_run head tile, the skinny MULTI-SCAN product and all-ones tiles,
+    where every count is D."""
+    rng = np.random.default_rng(d + m + n)
+    bi = torch.from_numpy((rng.random((d, m)) < p).astype(np.uint8)).to(cuda)
+    bj = torch.from_numpy((rng.random((d, n)) < p).astype(np.uint8)).to(cuda)
+    got = cooc_gram_cuda(bi, bj)
+    assert torch.equal(got, ref.cooc_gram_ref(bi, bj))
+    if p == 1.0:
+        assert bool((got == d).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,m", [(2048, 1024), (2048, 2048), (700, 1000)])
+def test_cooc_gram_one_tensor_diagonal(cuda, d, m):
+    """One tensor passed twice (the FREQ-SPLIT head): diagonal blocks read
+    their rows from the staged column tile."""
+    rng = np.random.default_rng(d * m)
+    t = torch.from_numpy((rng.random((d, m)) < 0.2).astype(np.uint8)).to(cuda)
+    assert torch.equal(cooc_gram_cuda(t, t), ref.cooc_gram_ref(t, t))
 
 
 @pytest.mark.cuda

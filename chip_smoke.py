@@ -36,29 +36,40 @@ without a card, without the repository beside it, or if any phase fails:
       build 8,256, 512 full-width or 32,896 tiles on the host, past the
       run's time limit.
 3. Kernels against their plain PyTorch versions on the card, with
-   ``torch.equal`` (tolerance 0): ``segment_hist`` on the head batch of
-   path 1 plus ragged, all-padding and V-1 inputs; ``topk_gather`` for
+   ``torch.equal`` (tolerance 0): ``segment_hist`` on path 1's head batch,
+   the first tail batches of path 2 and of ``cooc_run``, a stream whose
+   row leaves and re-enters the window, misaligned streams, ragged,
+   all-padding and V-1 inputs, each also accumulated into a grid that
+   holds counts; ``topk_gather`` for
    count, PMI and Dice at k in {1, 10, 1000, L} on a query tile of path 1's
    store, plus all-empty rows, tied rows, k = L, a row of equal scores and
    one whose k-th score ties across the cluster's slice boundaries, rows of
    1,000 slots and PMI scores of +0.0; ``cooc_gram`` on path 2's head tile,
    a ``list-blocks-gram`` tile pair, ``cooc_run``'s head tile, a skinny
    MULTI-SCAN pair, ragged D, M and N, all-ones, all-zero, one-tensor and
-   empty tiles; ``bitpair`` on blocks of path 2's full-width bitmaps plus
-   ragged and all-zero words. Each kernel is timed two ways, per call by
-   CUDA events around a loop of calls (host work per call included where
-   it outlasts the kernel; the kernels JSON line's times) and as device
-   time under the profiler, beside its plain version, the least time the card could take (the larger of bytes over
-   3.35 TB/s and operations over the card's peak rate for them), and one
-   PyTorch library call (``torch.bincount``, ``torch.topk`` at k = 10,
-   1,000 and 4,096, ``torch._int_mm`` at the head, ``cooc_run`` and
-   MULTI-SCAN shapes; none for ``bitpair``) as a yardstick only.
+   empty tiles; ``bitpair`` on blocks of path 2's full-width bitmaps (W =
+   625) and of the opt-in collection's (W = 63), diagonal and not, plus a
+   ragged diagonal, W = 1 in one slice, ragged and all-zero words.
+   Each kernel is timed two ways, per call by CUDA events around a loop
+   of calls (host work per call included where it outlasts the kernel;
+   the kernels JSON line's times) and as device time under the profiler,
+   beside its plain version, the least time the card could take (the
+   larger of bytes over 3.35 TB/s and operations over the card's peak
+   rate for them), and one PyTorch library call (``torch.bincount``,
+   ``torch.topk`` at k = 10, 1,000 and 4,096, ``torch._int_mm`` at the
+   head, ``cooc_run`` and MULTI-SCAN shapes; none for ``bitpair``) as a
+   yardstick only. ``segment_hist`` is timed at its three shapes, with
+   the share of tokens its window caught (the kernel's own counter);
+   ``bitpair`` at blocks 0 x 1 and 0 x 0 of both word widths; for both,
+   the wrapper's host time per call on the host clock as well.
 4. Summary: build docs/hour of both paths beside the host builds, top-k QPS
    and p50/p99 for each score, where the time of each build goes (stage
    spans, the device's busy share under the profiler, FREQ-SPLIT's head and
-   tail), each kernel's launches and times; then the ``nvidia-smi`` line,
-   the kernels' JSON line, and as the last line ``{"ok": true, "device":
-   ...}``.
+   tail), each kernel's summed device time in path 1's and path 2's
+   counting stages, serving, a profiled ``cooc_run`` and LIST-PAIRS on the
+   opt-in collection, each kernel's launches and times; then the
+   ``nvidia-smi`` line, the kernels' JSON line, and as the last line
+   ``{"ok": true, "device": ...}``.
 
 Stores and scratch go to ``.smoke_work/`` in the checkout, removed at exit.
 """
@@ -90,6 +101,7 @@ SEGMENT_ARRAYS = (
     "sym_row_ptr.bin", "sym_cols.bin", "sym_counts.bin",
 )
 SCORES = ("count", "pmi", "dice")
+KERNEL_NAMES = ("segment_hist", "topk_gather", "cooc_gram", "bitpair")
 
 
 class SmokeFailure(Exception):
@@ -180,6 +192,22 @@ def device_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     _, dev_s, _ = device_busy(lambda: [fn() for _ in range(reps)])
     return dev_s / reps * 1e3
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean milliseconds of host time per call of ``fn()`` (argument
+    checks, allocation, launch), on the host clock over ``reps`` calls that
+    do not wait for the card, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    spent = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return spent / reps * 1e3
 
 
 def both_ms(fn, reps: int) -> tuple[float, float]:
@@ -330,26 +358,55 @@ def opt_in_path(kernels) -> dict:
         secs[method] = time.perf_counter() - t0
         check(np.array_equal(got, want), f"{method} on the card != host list-scan")
     launches = launched(kernels, ("cooc_gram", "bitpair"), "the opt-in methods")
-    return {"secs": secs, "launches": launches, "postings": c.num_postings}
+    return {"secs": secs, "launches": launches, "postings": c.num_postings, "c": c}
 
 
 # --------------------------------------------------------------- phase 3
-def check_segment_hist(c) -> dict:
+def first_tail_batch(col, dev):
+    """The first ``segment_hist`` launch of FREQ-SPLIT's tail on ``col`` at
+    the default head of 1,024 terms: ``(ids, seg, rows, vocab)``."""
+    from repro_torch.core.hybrid import tail_batch_end
+    from repro_torch.core.list_scan import LAUNCH_TOKENS, _device_chunks
+    from repro_torch.data.index import DeviceIndex
+
+    lo = 1024
+    hi = tail_batch_end(lo, col.vocab_size)
+    idx = DeviceIndex.from_collection(col, dev)
+    ids, seg = next(_device_chunks(idx, lo, hi, LAUNCH_TOKENS, lower=True))
+    return ids, seg, hi - lo, hi
+
+
+def check_segment_hist(c, cd, run_cd) -> dict:
+    import numpy as np
     import torch
 
     from repro_torch.core.list_scan import LAUNCH_TOKENS, _device_chunks
     from repro_torch.data.index import DeviceIndex
+    from repro_torch.data.preprocess import shard_documents
     from repro_torch.kernels import ref
-    from repro_torch.kernels.segment_hist import segment_hist_cuda
+    from repro_torch.kernels.segment_hist import plan, segment_hist_cuda
 
     dev = torch.device("cuda")
     idx = DeviceIndex.from_collection(c, dev)
     rows = 64
     ids, seg = next(_device_chunks(idx, 0, rows, LAUNCH_TOKENS))  # head batch
+    shapes = {
+        "path 1 head batch": (ids, seg, rows, VOCAB),
+        "path 2 first tail batch": first_tail_batch(cd, dev),
+        # cooc_run counts shard by shard: its first shard's first tail batch
+        "cooc_run first tail batch": first_tail_batch(shard_documents(run_cd, 16)[0], dev),
+    }
     g = torch.Generator(device=dev).manual_seed(SEED)
     L = 1_000_003
-    cases = {
-        "head batch": (ids, seg, rows, VOCAB),
+    # rows 0, 1, 5, 0, 2, 63 of 300,000 tokens each: the window moves on,
+    # then the stream falls back behind it
+    rng = np.random.default_rng(SEED)
+    back = torch.from_numpy(np.repeat(np.array([0, 1, 5, 0, 2, 63], np.int32),
+                                      300_000)).to(dev)
+    back_ids = torch.from_numpy(
+        ((rng.zipf(1.1, back.numel()) - 1) % VOCAB).astype(np.int32)).to(dev)
+    cases = {name: shape for name, shape in shapes.items()}
+    cases.update({
         "ragged L": (
             torch.randint(-1, VOCAB, (L,), device=dev, generator=g, dtype=torch.int32),
             torch.randint(-1, rows, (L,), device=dev, generator=g, dtype=torch.int32),
@@ -363,7 +420,9 @@ def check_segment_hist(c) -> dict:
             torch.full((5000,), VOCAB - 1, dtype=torch.int32, device=dev),
             torch.arange(5000, dtype=torch.int32, device=dev) % rows, rows, VOCAB,
         ),
-    }
+        "row leaves and re-enters the window": (back_ids, back, rows, VOCAB),
+        "misaligned head batch": (ids[1:], seg[1:], rows, VOCAB),
+    })
     err = 0.0
     for name, (i, s, r, v) in cases.items():
         got = segment_hist_cuda(i, s, num_rows=r, vocab=v)
@@ -371,21 +430,43 @@ def check_segment_hist(c) -> dict:
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"segment_hist != plain version on {name}")
         err = max(err, max_abs_err(got, want))
+        # again into the grid that now holds counts: a batch over launches
+        segment_hist_cuda(i, s, num_rows=r, vocab=v, out=got)
+        ref.segment_hist_ref(i, s, r, v, out=want)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"segment_hist != plain version accumulating on {name}")
 
+    out = {"max_abs_err": err, "shapes": {}}
+    for name, (i, s, r, v) in shapes.items():
+        n = i.numel()
+        grid = torch.zeros((r, v), dtype=torch.int32, device=dev)
+        hits = torch.zeros(1, dtype=torch.int64, device=dev)
+        segment_hist_cuda(i, s, num_rows=r, vocab=v, out=grid, hits=hits)
+        valid = int(((i >= 0) & (s >= 0) & (s < r) & (i < v)).sum())
+        # the caller zeroes the grid; the kernel reads and writes only the
+        # cells this batch makes nonzero
+        nnz = int(torch.count_nonzero(grid))
+        keys = s.to(torch.int64) * v + i.to(torch.int64)
+        p = plan(r, v, n)
+        out["shapes"][name] = {
+            "tokens": n, "grid": (r, v), "window": (p.R, p.H),
+            "blocks": p.blocks, "span": p.span,
+            "hit_share": int(hits) / max(valid, 1),
+            "ms": both_ms(lambda: segment_hist_cuda(
+                i, s, num_rows=r, vocab=v, out=grid), reps=20),
+            "host_ms": host_ms(lambda: segment_hist_cuda(
+                i, s, num_rows=r, vocab=v, out=grid), reps=20),
+            "library_ms": both_ms(lambda: torch.bincount(
+                keys, minlength=r * v), reps=5),
+            "nonzero_cells": nnz,
+            "bound_ms": (8 * n + 8 * nnz) / HBM_BYTES_PER_S * 1e3,
+        }
     grid = torch.zeros((rows, VOCAB), dtype=torch.int32, device=dev)
-    keys = seg.to(torch.int64) * VOCAB + ids.to(torch.int64)
-    n = ids.numel()
-    return {
-        "tokens": n,
-        "max_abs_err": err,
-        "ms": both_ms(lambda: segment_hist_cuda(
-            ids, seg, num_rows=rows, vocab=VOCAB, out=grid), reps=20),
-        "plain_ms": both_ms(lambda: ref.segment_hist_ref(
-            ids, seg, rows, VOCAB, out=grid), reps=5),
-        "library_ms": both_ms(lambda: torch.bincount(
-            keys, minlength=rows * VOCAB), reps=5),
-        "bound_ms": (8 * n + 4 * rows * VOCAB) / HBM_BYTES_PER_S * 1e3,
-    }
+    out["plain_ms"] = both_ms(lambda: ref.segment_hist_ref(
+        ids, seg, rows, VOCAB, out=grid), reps=5)
+    out.update(out["shapes"]["path 1 head batch"])
+    return out
 
 
 def check_topk_gather(store) -> dict:
@@ -573,20 +654,26 @@ def check_cooc_gram(cd, run_cd) -> dict:
     return out
 
 
-def check_bitpair(cd, clock_hz: float) -> dict:
+def check_bitpair(cd, opt_c, clock_hz: float) -> dict:
+    """``bitpair`` against its plain version, then timed on LIST-PAIRS
+    blocks of path 2's bitmaps (W = 625 words, 20,000 documents) and of the
+    opt-in collection's (W = 63, 2,000 documents): block 0 x 1, the shape
+    of 120 of LIST-PAIRS' 136 calls, and the diagonal block 0 x 0."""
     import numpy as np
     import torch
 
     from repro_torch.data.index import incidence_bitpacked
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bitpair import bitpair_cuda
+    from repro_torch.kernels.bitpair import bitpair_cuda, plan
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     bits = torch.from_numpy(incidence_bitpacked(cd).view(np.int32)).to(dev)
     build_s = time.perf_counter() - t0
+    opt_bits = torch.from_numpy(incidence_bitpacked(opt_c).view(np.int32)).to(dev)
     V, W = bits.shape
     b0, b1, tail = bits[:256], bits[256:512], bits[V - 256:]
+    o0, o1 = opt_bits[:256], opt_bits[256:512]
     g = torch.Generator(device=dev).manual_seed(SEED)
 
     def rand(m, w):
@@ -595,12 +682,17 @@ def check_bitpair(cd, clock_hz: float) -> dict:
 
     zero_words = rand(64, W)
     zero_words[:, ::2] = 0
+    ragged = rand(70, W)
     cases = {
         "block 0 x 0": (b0, b0),
         "block 0 x 1": (b0, b1),
         "tail block x tail block": (tail, tail),
         "block 0 x tail block": (b0, tail),
+        "W = 63 block 0 x 0": (o0, o0),
+        "W = 63 block 0 x 1": (o0, o1),
         "ragged (70, 33) x (130, 33)": (rand(70, 33), rand(130, 33)),
+        "diagonal, ragged M = 70": (ragged, ragged),
+        "one slice at W = 1": (rand(256, 1), rand(256, 1)),
         "zero words": (zero_words, b1[:100]),
     }
     err = 0.0
@@ -611,17 +703,30 @@ def check_bitpair(cd, clock_hz: float) -> dict:
         check(torch.equal(got, want), f"bitpair != plain version on {name}")
         err = max(err, max_abs_err(got, want))
 
-    M = b0.shape[0]
-    bound_ms, bound_by = bound(4 * M * W + 4 * M * M, M * M * W,
-                               SMS * POPC_PER_CLOCK_PER_SM * clock_hz)
-    return {
-        "shape": (M, M, W), "max_abs_err": err, "bitmap_build_s": build_s,
-        "ms": both_ms(lambda: bitpair_cuda(b0, b0), reps=50),
-        "ms_off_diagonal": both_ms(lambda: bitpair_cuda(b0, b1), reps=50),
-        "plain_ms": both_ms(lambda: ref.bitpair_popcount_ref(b0, b0), reps=3),
-        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-        "clock_mhz": clock_hz / 1e6,
-    }
+    popc_per_s = SMS * POPC_PER_CLOCK_PER_SM * clock_hz
+
+    def timed(a, b):
+        M, w = a.shape
+        N = b.shape[0]
+        bytes_moved = 4 * (M * w + (0 if a is b else N * w) + M * N)
+        # one tensor twice: the pairs n >= m give the whole symmetric output
+        pairs = M * (M + 1) // 2 if a is b else M * N
+        bound_ms, bound_by = bound(bytes_moved, pairs * w, popc_per_s)
+        return {"shape": (M, N, w), "blocks": plan(M, N, w, a is b).blocks,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "ms": both_ms(lambda: bitpair_cuda(a, b), reps=50),
+                "host_ms": host_ms(lambda: bitpair_cuda(a, b), reps=50)}
+
+    out = timed(b0, b1)  # the headline: off the diagonal, W = 625
+    out.update({
+        "max_abs_err": err, "bitmap_build_s": build_s, "clock_mhz": clock_hz / 1e6,
+        "diagonal": timed(b0, b0),
+        "w63": timed(o0, o1),
+        "w63_diagonal": timed(o0, o0),
+        "plain_ms": both_ms(lambda: ref.bitpair_popcount_ref(b0, b1), reps=3),
+        "library_ms": None,
+    })
+    return out
 
 
 # --------------------------------------------------------------- phase 4
@@ -700,10 +805,6 @@ def freq_split_time(cd) -> dict:
             hybrid.count_freq_split(cd, sink)
 
     wall, busy, ops_ = device_busy(count)
-    kernel_s = {
-        name: sum(t for n, t in ops_ if f"{name}_kernel" in n)
-        for name in ("cooc_gram", "segment_hist")
-    }
 
     spent = {"stage_s": 0.0, "head_s": 0.0, "tail_s": 0.0}
 
@@ -724,7 +825,27 @@ def freq_split_time(cd) -> dict:
         timed("stage_s", count)()
     finally:
         hybrid._head_gram, hybrid._count_tail = head, tail
-    return {"count": (wall, busy, ops_), "kernel_s": kernel_s, **spent}
+    return {"count": (wall, busy, ops_), **spent}
+
+
+def driver_opt_in_time(opt_c) -> dict:
+    """Device busy share and device ops of the batch driver (a fresh
+    ``cooc_run`` at its defaults) and of ``list-pairs-bitpacked`` on the
+    opt-in collection."""
+    from repro_torch.core.cooc import dense_counts
+    from repro_torch.launch import cooc_run
+
+    return {
+        "cooc_run": device_busy(
+            lambda: cooc_run.run(out_dir=os.path.join(WORK, "cooc_run_prof"))),
+        "list-pairs": device_busy(
+            lambda: dense_counts("list-pairs-bitpacked", opt_c)),
+    }
+
+
+def kernel_s(ops_) -> dict:
+    """Each kernel's summed device seconds among a profiled window's ops."""
+    return {k: sum(t for n, t in ops_ if f"{k}_kernel" in n) for k in KERNEL_NAMES}
 
 
 # ------------------------------------------------------------------ main
@@ -813,21 +934,30 @@ def run() -> int:
             print(f"[launches] {path}: {json.dumps(counts)}")
 
         # phase 3: kernels against their plain versions, and their times
-        sh = phase("3 segment_hist vs plain", check_segment_hist, c)
+        sh = phase("3 segment_hist vs plain", check_segment_hist, c, cd, dr["cd"])
         tk = phase("3 topk_gather vs plain", check_topk_gather, mp["store"])
         cg = phase("3 cooc_gram vs plain", check_cooc_gram, cd, dr["cd"])
-        bp = phase("3 bitpair vs plain", check_bitpair, cd, max_sm_clock_hz())
+        bp = phase("3 bitpair vs plain", check_bitpair, cd, oi["c"],
+                   max_sm_clock_hz())
         # phase 4: where the time goes
         wt = phase("4 where path 1's time goes", where_time_goes, c, mp["store"])
         wf = phase("4 where path 2's time goes", freq_split_time, cd)
+        wd = phase("4 kernels of cooc_run and list-pairs", driver_opt_in_time,
+                   oi["c"])
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    print(f"[segment_hist] equal to plain on all cases; head batch "
-          f"{sh['tokens']} tokens: kernel {show(sh['ms'])}, plain "
-          f"{show(sh['plain_ms'])}, bincount {show(sh['library_ms'])}, bound "
-          f"{sh['bound_ms']:.4f} ms ({sh['bound_ms'] / sh['ms'][0]:.1%} of "
-          f"bound) | {smi}")
+    for name, t in sh["shapes"].items():
+        print(f"[segment_hist] {name}: {t['tokens']} tokens into {t['grid']}, "
+              f"window {t['window'][0]} x {t['window'][1]} on {t['blocks']} "
+              f"blocks of {t['span']} tokens, hit share {t['hit_share']:.2%}: "
+              f"kernel {show(t['ms'])}, host work {t['host_ms']:.4f} ms a call, "
+              f"bincount {show(t['library_ms'])}, bound "
+              f"{t['bound_ms']:.4f} ms by bytes (tokens and "
+              f"{t['nonzero_cells']} nonzero cells; {t['bound_ms'] / t['ms'][0]:.1%} "
+              f"of bound, device {t['bound_ms'] / t['ms'][1]:.1%}) | {smi}")
+    print(f"[segment_hist] equal to plain on all cases; head batch plain "
+          f"(index_put_) {show(sh['plain_ms'])}")
     for score, t in tk["per_score"].items():
         print(f"[topk_gather] {score} B={tk['B']} L={tk['L']} k=10: kernel "
               f"{show(t['ms'])}, plain {show(t['plain_ms'])}, torch.topk "
@@ -850,38 +980,48 @@ def run() -> int:
               f"{show(t['ms'])}, torch._int_mm {show(t['library_ms'])}, bound "
               f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
               f"({t['bound_ms'] / t['ms'][0]:.1%} of bound) | {smi}")
-    print(f"[bitpair] equal to plain on all cases; block 0 x 0 (M, N, W) = "
-          f"{bp['shape']}: kernel {show(bp['ms'])} (0 x 1: "
-          f"{show(bp['ms_off_diagonal'])}), plain (SWAR) {show(bp['plain_ms'])}, "
-          f"no library call, bound {bp['bound_ms']:.4f} ms by "
-          f"{bp['bound_by']} at {bp['clock_mhz']:.0f} MHz "
-          f"({bp['bound_ms'] / bp['ms'][0]:.1%} of bound); bitmaps of the "
-          f"collection built on the host in {bp['bitmap_build_s']:.2f}s | {smi}")
+    print(f"[bitpair] equal to plain on all cases; plain (SWAR) on block 0 x 1 "
+          f"{show(bp['plain_ms'])}, no library call; bounds at "
+          f"{bp['clock_mhz']:.0f} MHz; bitmaps of the collection built on the "
+          f"host in {bp['bitmap_build_s']:.2f}s")
+    for label, t in (("W = 625 block 0 x 1", bp), ("W = 625 block 0 x 0", bp["diagonal"]),
+                     ("W = 63 block 0 x 1", bp["w63"]),
+                     ("W = 63 block 0 x 0", bp["w63_diagonal"])):
+        print(f"[bitpair] {label} (M, N, W) = {t['shape']}, {t['blocks']} blocks: "
+              f"kernel {show(t['ms'])}, host work {t['host_ms']:.4f} ms a call, "
+              f"bound {t['bound_ms']:.4f} ms by "
+              f"{t['bound_by']} ({t['bound_ms'] / t['ms'][0]:.1%} of bound, "
+              f"device {t['bound_ms'] / t['ms'][1]:.1%}) | {smi}")
     for label, st in (("path 1 cuda build", mp["stages"]),
                       ("path 2 cuda build", fs["stages"])):
         stages = ", ".join(f"{n.split('/', 1)[1]} {s:.2f}s"
                            for n, s in sorted(st.items()))
         print(f"[where] {label} stages (inclusive): {stages}")
-    for what, (wall, dev, ops_) in (("path 1 counting stage", wt["count"]),
-                                    ("path 2 counting stage", wf["count"]),
-                                    ("serving 10 pmi batches", wt["serve"])):
+    profiled = {"path 1 counting stage": wt["count"],
+                "path 2 counting stage": wf["count"],
+                "serving 10 pmi batches": wt["serve"],
+                "cooc_run at its defaults": wd["cooc_run"],
+                "list-pairs-bitpacked (opt-in, reduced)": wd["list-pairs"]}
+    path_kernel_s = {what: kernel_s(ops_) for what, (_, _, ops_) in profiled.items()}
+    for what, (wall, dev, ops_) in profiled.items():
         tops = "; ".join(f"{n[:48]} {t:.4f} s" for n, t in ops_[:3])
+        mine = ", ".join(f"{k} {t:.4f} s" for k, t in path_kernel_s[what].items() if t)
         print(f"[where] {what} under the profiler: wall {wall:.3f} s, device "
-              f"busy {dev:.4f} s ({dev / wall:.2%}); top device ops: {tops} "
-              f"| {smi}")
+              f"busy {dev:.4f} s ({dev / wall:.2%}); kernels: {mine or 'none'}; "
+              f"top device ops: {tops} | {smi}")
     print(f"[where] path 2 counting stage on the host clock: "
           f"{wf['stage_s']:.3f} s; head Gram {wf['head_s']:.3f} s "
           f"({wf['head_s'] / wf['stage_s']:.1%}), tail {wf['tail_s']:.3f} s "
           f"({wf['tail_s'] / wf['stage_s']:.1%}), the rest (index build, head "
           f"emission) {wf['stage_s'] - wf['head_s'] - wf['tail_s']:.3f} s, in "
-          f"one run; kernels under the profiler: "
-          f"cooc_gram {wf['kernel_s']['cooc_gram']:.4f} s, segment_hist "
-          f"{wf['kernel_s']['segment_hist']:.4f} s | {smi}")
+          f"one run | {smi}")
     print(f"[where] serving batch of 64 (pmi, k=10, rows cached): top-k call "
           f"{wt['batch_ms']:.2f} ms; building its padded tile alone on the "
           f"host {wt['tile_ms']:.2f} ms")
     pmi = tk["per_score"]["pmi"]
     total = {k.name: sum(p[k.name] for p in paths.values()) for k in ops.KERNELS}
+    device_s = {k: {what: t[k] for what, t in path_kernel_s.items() if t[k]}
+                for k in KERNEL_NAMES}
     kernels = [
         {
             "name": "segment_hist", "route": "cuda",
@@ -891,6 +1031,15 @@ def run() -> int:
             "max_abs_err": sh["max_abs_err"], "ms": sh["ms"][0],
             "plain_ms": sh["plain_ms"][0], "bound_ms": sh["bound_ms"],
             "bound_by": "bytes", "library_ms": sh["library_ms"][0],
+            "device_ms": sh["ms"][1], "hit_share": sh["hit_share"],
+            "shapes": {
+                name: {"tokens": t["tokens"], "grid": t["grid"],
+                       "window": t["window"], "hit_share": t["hit_share"],
+                       "ms": t["ms"][0], "device_ms": t["ms"][1],
+                       "host_ms": t["host_ms"], "library_ms": t["library_ms"][0],
+                       "bound_ms": t["bound_ms"]}
+                for name, t in sh["shapes"].items()
+            },
         },
         {
             "name": "topk_gather", "route": "cuda",
@@ -900,6 +1049,7 @@ def run() -> int:
             "max_abs_err": tk["max_abs_err"], "ms": pmi["ms"][0],
             "plain_ms": pmi["plain_ms"][0], "bound_ms": tk["bound_ms"],
             "bound_by": "bytes", "library_ms": pmi["library_ms"][0],
+            "device_ms": pmi["ms"][1],
         },
         {
             "name": "cooc_gram", "route": "cuda",
@@ -909,6 +1059,7 @@ def run() -> int:
             "max_abs_err": cg["max_abs_err"], "ms": cg["ms"][0],
             "plain_ms": cg["plain_ms"][0], "bound_ms": cg["bound_ms"],
             "bound_by": cg["bound_by"], "library_ms": cg["library_ms"][0],
+            "device_ms": cg["ms"][1],
         },
         {
             "name": "bitpair", "route": "cuda",
@@ -918,8 +1069,20 @@ def run() -> int:
             "max_abs_err": bp["max_abs_err"], "ms": bp["ms"][0],
             "plain_ms": bp["plain_ms"][0], "bound_ms": bp["bound_ms"],
             "bound_by": bp["bound_by"], "library_ms": bp["library_ms"],
+            "device_ms": bp["ms"][1], "shape": bp["shape"],
+            "shapes": {
+                label: {"shape": t["shape"], "blocks": t["blocks"],
+                        "ms": t["ms"][0], "device_ms": t["ms"][1],
+                        "host_ms": t["host_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"]}
+                for label, t in (("W=625 0x1", bp), ("W=625 0x0", bp["diagonal"]),
+                                 ("W=63 0x1", bp["w63"]),
+                                 ("W=63 0x0", bp["w63_diagonal"]))
+            },
         },
     ]
+    for k in kernels:
+        k["path_device_s"] = device_s[k["name"]]
     print(f"[phases] " + ", ".join(f"{n} {t:.1f}s" for n, t in phase_s.items()))
     print(smi)
     print(json.dumps({"kernels": kernels}))

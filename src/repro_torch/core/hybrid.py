@@ -91,6 +91,13 @@ def _head_gram(c: Collection, H: int, doc_tile: int, dev) -> tuple[np.ndarray, i
     return acc, matmuls
 
 
+def tail_batch_end(lo: int, V: int) -> int:
+    """The end of the tail batch of terms that starts at ``lo``: the largest
+    batch r with r · (lo + r) <= ``TAIL_GRID_CELLS``, at least one term."""
+    r = max(1, (math.isqrt(lo * lo + 4 * TAIL_GRID_CELLS) - lo) // 2)
+    return min(V, lo + r)
+
+
 def _count_tail(idx: DeviceIndex, H: int, sink: PairSink) -> None:
     """Columns C[:t, t] of every tail term t >= H, by batches of terms
     [lo, hi): one ``segment_hist`` grid of ``(hi - lo, hi)`` cells each,
@@ -102,9 +109,7 @@ def _count_tail(idx: DeviceIndex, H: int, sink: PairSink) -> None:
     emit_keys = getattr(sink, "emit_keys", None)
     lo = H
     while lo < V:
-        # the largest batch r with r · (lo + r) <= TAIL_GRID_CELLS
-        r = max(1, (math.isqrt(lo * lo + 4 * TAIL_GRID_CELLS) - lo) // 2)
-        hi = min(V, lo + r)
+        hi = tail_batch_end(lo, V)
         grid = None
         for tokens, seg in _device_chunks(idx, lo, hi, LAUNCH_TOKENS, lower=True):
             if grid is None:

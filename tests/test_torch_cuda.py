@@ -23,13 +23,16 @@ from repro_torch.core.cooc import count_to_store, dense_counts  # noqa: E402
 from repro_torch.core.list_scan import count_list_scan_segment  # noqa: E402
 from repro_torch.core.types import DenseSink  # noqa: E402
 from repro_torch.data.corpus import synthetic_zipf_collection  # noqa: E402
+from repro_torch.data.index import DeviceIndex  # noqa: E402
 from repro_torch.data.preprocess import remap_df_descending  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.bitpair import KERNEL as BITPAIR  # noqa: E402
 from repro_torch.kernels.bitpair import bitpair_cuda  # noqa: E402
+from repro_torch.kernels.bitpair import plan as bitpair_plan  # noqa: E402
 from repro_torch.kernels.cooc_gram import KERNEL as COOC_GRAM  # noqa: E402
 from repro_torch.kernels.cooc_gram import cooc_gram_cuda  # noqa: E402
 from repro_torch.kernels.segment_hist import KERNEL as SEGMENT_HIST  # noqa: E402
+from repro_torch.kernels.segment_hist import plan as segment_hist_plan  # noqa: E402
 from repro_torch.kernels.segment_hist import segment_hist_cuda  # noqa: E402
 from repro_torch.kernels.topk_gather import topk_gather_cuda  # noqa: E402
 
@@ -59,6 +62,88 @@ def test_segment_hist_equals_plain(cuda, L, rows, vocab):
     assert torch.equal(got, ref.segment_hist_ref(ids, seg, rows, vocab))
     segment_hist_cuda(ids, seg, num_rows=rows, vocab=vocab, out=got)  # accumulate
     assert torch.equal(got, 2 * ref.segment_hist_ref(ids, seg, rows, vocab))
+
+
+def _rows_stream(rng, rows, lens, vocab):
+    """Tokens of ``rows`` in that order, ``lens`` each, ids Zipf-shaped."""
+    seg = np.repeat(np.asarray(rows), lens)
+    ids = (rng.zipf(1.1, size=len(seg)) - 1) % vocab
+    return ids, seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_segment_hist_window_leaves_and_reenters(cuda, misaligned):
+    """Rows 0, 1, 5, 0, 2, 63 in turn, each longer than a block's span, so
+    the window moves forward and the stream then falls back behind it;
+    with ``misaligned`` both streams start 4 bytes past a 16-byte boundary."""
+    rng = np.random.default_rng(11)
+    ids, seg = _rows_stream(rng, [0, 1, 5, 0, 2, 63], 300_000, 65_536)
+    ids[::1001] = -1
+    ids, seg = _on(cuda, ids, seg)
+    if misaligned:
+        ids, seg = ids[1:], seg[1:]
+    hits = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = segment_hist_cuda(ids, seg, num_rows=64, vocab=65_536, hits=hits)
+    assert torch.equal(got, ref.segment_hist_ref(ids, seg, 64, 65_536))
+    assert 0 < int(hits) <= int((ids >= 0).sum())
+
+
+@pytest.mark.cuda
+def test_segment_hist_counts_hits_of_a_one_row_stream(cuda):
+    """Every token of one row inside the window's columns is a hit."""
+    n = 5_000_000
+    p = segment_hist_plan(64, 65_536, n)
+    ids, seg = _on(cuda, np.arange(n) % p.H, np.full(n, 7))
+    hits = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = segment_hist_cuda(ids, seg, num_rows=64, vocab=65_536, hits=hits)
+    assert torch.equal(got, ref.segment_hist_ref(ids, seg, 64, 65_536))
+    assert int(hits) == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lower", [False, True])
+def test_segment_hist_list_scan_stream_into_a_holding_grid(cuda, lower):
+    """A real batch stream (sorted rows, Zipf ids) accumulated into a grid
+    that already holds counts, as a batch split over several launches is."""
+    c = synthetic_zipf_collection(3000, vocab=20_000, mean_len=230, seed=6)
+    idx = DeviceIndex.from_collection(c, cuda)
+    lo, hi = (300, 1400) if lower else (0, 64)
+    ids, seg = next(list_scan._device_chunks(idx, lo, hi, 1 << 26, lower=lower))
+    vocab = hi if lower else c.vocab_size
+    rng = np.random.default_rng(3)
+    start = torch.from_numpy(
+        rng.integers(0, 1000, (hi - lo, vocab)).astype(np.int32)).to(cuda)
+    got = segment_hist_cuda(ids, seg, num_rows=hi - lo, vocab=vocab, out=start.clone())
+    want = ref.segment_hist_ref(ids, seg, hi - lo, vocab, out=start.clone())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 33, 625])
+@pytest.mark.parametrize("m,n", [(1, 1), (256, 256), (70, 130)])
+def test_bitpair_split_words(cuda, m, n, w):
+    """Calls whose plan splits the words over S > 1 slices (at W = 1 the
+    plan keeps one slice: every slice holds a word), off the diagonal and
+    on it."""
+    assert bitpair_plan(m, n, w, False).slices > 1 or w == 1
+    rng = np.random.default_rng(m + n + w)
+    ti = torch.from_numpy(rng.integers(0, 2**32, (m, w), dtype=np.uint32).view(np.int32)).to(cuda)
+    tj = torch.from_numpy(rng.integers(0, 2**32, (n, w), dtype=np.uint32).view(np.int32)).to(cuda)
+    assert torch.equal(bitpair_cuda(ti, tj), ref.bitpair_popcount_ref(ti, tj))
+    assert torch.equal(bitpair_cuda(tj, tj), ref.bitpair_popcount_ref(tj, tj))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,w", [(70, 625), (70, 1), (200, 63), (4096, 63)])
+def test_bitpair_diagonal_mirrors(cuda, m, w):
+    """One tensor twice: only the tiles tn >= tm run, mirrored into the
+    lower triangle; ragged M leaves a partial last tile."""
+    rng = np.random.default_rng(m * w)
+    t = torch.from_numpy(rng.integers(0, 2**32, (m, w), dtype=np.uint32).view(np.int32)).to(cuda)
+    got = bitpair_cuda(t, t)
+    assert torch.equal(got, ref.bitpair_popcount_ref(t, t))
+    assert torch.equal(got, got.t())
 
 
 @pytest.mark.cuda

@@ -35,6 +35,25 @@ without a card, without the repository beside it, or if any phase fails:
       ``list-scan`` exactly. At V = 65,536 their quadratic-in-V traversals
       build 8,256, 512 full-width or 32,896 tiles on the host, past the
       run's time limit.
+   e. The live store at full width, on path 1's collection:
+      i.   documents 0-9,999 are written to a feed and tailed into a fresh
+           store by ``launch.cooc_stream.stream`` on the card, sealed every
+           2,048 documents (``list-scan-segment``: ``segment_hist`` in this
+           process) with the compaction daemon (fanout 4) alongside;
+      ii.  ``launch.cooc_serve.serve`` serves that store with 4 worker
+           processes and 4 clients (PMI, k = 10, 2,000 Zipf queries) while
+           it follows a feed of documents 10,000-19,999 with ``--compact``
+           and a 50 ms idle refresh; every worker must have launched
+           ``topk_gather`` on the card (its own count, from its stats), the
+           manifest generation must advance, no worker may die or shed.
+           The rest of the feed is then drained from the manifest cursor and
+           the store compacted to one segment, whose CSR arrays must be
+           byte-identical to path 1's;
+      iii. 4 workers on path 1's store answer 256 fixed count/PMI/Dice top-k
+           requests, each equal to the in-process engine's on the card (ids
+           and scores bit for bit); again with ``REPRO_FAULTS`` killing
+           worker 1 at its fourth batch: every answer still returns, after
+           retries, with exactly one respawn.
 3. Kernels against their plain PyTorch versions on the card, with
    ``torch.equal`` (tolerance 0): ``segment_hist`` on path 1's head batch,
    the first tail batches of path 2 and of ``cooc_run``, a stream whose
@@ -63,7 +82,9 @@ without a card, without the repository beside it, or if any phase fails:
    ``bitpair`` at blocks 0 x 1 and 0 x 0 of both word widths; for both,
    the wrapper's host time per call on the host clock as well.
 4. Summary: build docs/hour of both paths beside the host builds, top-k QPS
-   and p50/p99 for each score, where the time of each build goes (stage
+   and p50/p99 for each score, the live store's docs/hour, visibility lag,
+   seals, merges, multi-worker QPS and worker start-up, where the time of
+   each build goes (stage
    spans, the device's busy share under the profiler, FREQ-SPLIT's head and
    tail), each kernel's summed device time in path 1's and path 2's
    counting stages, serving, a profiled ``cooc_run`` and LIST-PAIRS on the
@@ -93,6 +114,14 @@ DOCS, VOCAB, SEED = 20_000, 65_536, 0
 # the opt-in methods' reduced collection (see phase 2d)
 OPT_DOCS, OPT_VOCAB, OPT_MEAN_LEN = 2_000, 4_096, 230
 OPT_IN = ("list-blocks-gram", "multi-scan-matmul", "list-pairs-bitpacked")
+# the live store (phase 2e): documents 0..LIVE_DOCS-1 streamed into a fresh
+# store, the rest followed while LIVE_WORKERS workers serve it
+LIVE_DOCS, SEAL_DOCS, FANOUT = 10_000, 2_048, 4
+LIVE_WORKERS = LIVE_CLIENTS = 4
+LIVE_LAG_MS = 15_000.0  # visibility budget of one 2,048-document seal here
+LIVE_REQUESTS = 256     # fixed top-k requests that the workers answer (2e-iii)
+KILL_SPEC = "kill-worker=1:3"  # worker 1 dies claiming its fourth batch
+SEAL_METHOD = "list-scan-segment"  # what a seal on the card must count with
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor-core rate (data sheet)
 SMS, POPC_PER_CLOCK_PER_SM = 132, 16  # __popc at a quarter of the int32 rate
@@ -359,6 +388,217 @@ def opt_in_path(kernels) -> dict:
         check(np.array_equal(got, want), f"{method} on the card != host list-scan")
     launches = launched(kernels, ("cooc_gram", "bitpair"), "the opt-in methods")
     return {"secs": secs, "launches": launches, "postings": c.num_postings, "c": c}
+
+
+# --------------------------------------------------------------- phase 2e
+def worker_launches(stats: dict, what: str, every: bool = True) -> list[int]:
+    """Each worker's ``topk_gather`` launches, from its own stats snapshot
+    (launch counters are per process; after a respawn, the replacement's).
+    Every worker must be on the card and, with ``every``, have launched
+    the kernel."""
+    per = stats["per_worker"]
+    check(len(per) == LIVE_WORKERS, f"{what}: {len(per)} workers reported")
+    for w, st in enumerate(per):
+        check(st["device"] == "cuda", f"{what}: worker {w} ran on {st['device']}")
+        check(not every or st["kernel_launches"]["topk_gather"] > 0,
+              f"{what}: worker {w} launched topk_gather no time")
+    return [st["kernel_launches"]["topk_gather"] for st in per]
+
+
+def live_stream(c, kernels) -> dict:
+    """2e-i: documents 0..LIVE_DOCS-1, written to a feed, tailed into a
+    fresh store by ``cooc_stream.stream`` on the card (seals of SEAL_DOCS
+    counted by ``list-scan-segment``), with the compaction daemon alongside."""
+    from repro_torch.launch import cooc_stream
+    from repro_torch.stream import write_feed
+
+    feeds = [os.path.join(WORK, f"live_feed{i}.txt") for i in (1, 2)]
+    for feed, docs in zip(feeds, (range(LIVE_DOCS), range(LIVE_DOCS, DOCS))):
+        write_feed(feed, (c.doc(d) for d in docs), append=False)
+    path = os.path.join(WORK, "live")
+    reset(kernels)
+    summary = cooc_stream.stream(
+        feeds[0], path, vocab=VOCAB, seal_docs=SEAL_DOCS, max_lag_ms=LIVE_LAG_MS,
+        max_docs=LIVE_DOCS, budget_pairs=4 << 20, compact=True, fanout=FANOUT,
+    )
+    launches = launched(kernels, ("segment_hist",), "2e-i stream ingest")
+    check(summary["healthy"] and summary["docs_this_run"] == LIVE_DOCS
+          and summary["method"] == SEAL_METHOD,
+          f"2e-i stream ingest: {summary}")
+    return {"summary": summary, "launches": launches, "feeds": feeds, "path": path}
+
+
+def live_serve(st, kernels) -> dict:
+    """2e-ii: ``cooc_serve.serve`` on the live store with LIVE_WORKERS
+    workers and LIVE_CLIENTS clients (PMI, k = 10, 2,000 Zipf queries) while
+    it follows the second feed with ``--compact``; then the rest of the feed
+    is drained from the manifest cursor and the store compacted to one
+    segment."""
+    from repro_torch.launch import cooc_serve, cooc_stream
+    from repro_torch.store import Store
+    from repro_torch.stream import StreamCursor
+
+    path, feed = st["path"], st["feeds"][1]
+    gen0 = int(Store.open(path).manifest["generation"])
+    reset(kernels)
+    t0 = time.perf_counter()
+    served = cooc_serve.serve(
+        store_path=path, queries=2000, batch=64, topk=10, score="pmi",
+        workers=LIVE_WORKERS, clients=LIVE_CLIENTS, batch_window_ms=2.0,
+        follow=feed, compact=True, refresh_interval_ms=50, max_lag_ms=LIVE_LAG_MS,
+    )
+    serve_s = time.perf_counter() - t0
+    launches = launched(kernels, ("segment_hist",), "2e-ii follow")
+    sv = served["serving"]
+    check(served["workers_lost"] == 0 and sv["resilience"]["respawns"] == 0
+          and served["shed"] == 0,
+          f"2e-ii: workers_lost {served['workers_lost']}, resilience {sv['resilience']}, "
+          f"shed {served['shed']}")
+    workers = worker_launches(sv, "2e-ii")
+    check(sv["freshness"]["generation"] > gen0,
+          f"2e-ii: manifest generation {sv['freshness']['generation']} did not "
+          f"advance past {gen0}")
+    check(served["stream"]["healthy"], f"2e-ii follow failed: {served['stream']}")
+
+    # the stop sealed what was buffered; the rest resumes from the cursor
+    followed = StreamCursor(Store.open(path), os.path.abspath(feed)).load().docs
+    reset(kernels)
+    t0 = time.perf_counter()
+    if followed < DOCS - LIVE_DOCS:
+        cooc_stream.stream(
+            feed, path, seal_docs=SEAL_DOCS, max_lag_ms=LIVE_LAG_MS,
+            max_docs=DOCS - LIVE_DOCS - followed, budget_pairs=4 << 20)
+    drain_s = time.perf_counter() - t0
+    drain_launches = {k.name: k.launches for k in kernels}
+    store = Store.open(path)
+    check(StreamCursor(store, os.path.abspath(feed)).load().docs == DOCS - LIVE_DOCS
+          and store.num_docs == DOCS, f"the live store holds {store.num_docs} documents")
+    t0 = time.perf_counter()
+    segments = len(store.segment_names)
+    if segments > 1:
+        store.compact()
+    compact_s = time.perf_counter() - t0
+    return {"served": served, "serve_s": serve_s, "launches": launches,
+            "workers": workers, "gen0": gen0, "followed": followed,
+            "drain_s": drain_s, "drain_launches": drain_launches,
+            "segments": segments, "compact_s": compact_s,
+            "segment": store.segments[0]}
+
+
+def live_answers(store, faults: str | None) -> dict:
+    """2e-iii: LIVE_WORKERS workers on path 1's store answer LIVE_REQUESTS
+    fixed top-k requests (count, PMI, Dice; k = 10) from LIVE_CLIENTS
+    clients; every answer must equal the in-process engine's on the card,
+    ids and scores bit for bit. With ``faults``, ``REPRO_FAULTS`` arms the
+    first incarnation of the fleet only, so the killed worker's replacement
+    lives: the run must still return every answer (retries) with exactly
+    one respawn."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.launch.cooc_serve import _zipf_sampler
+    from repro_torch.runtime import faultinject
+    from repro_torch.store import CoocServer, QueryEngine, TopKRequest
+
+    draw = _zipf_sampler(store, SEED)
+    rng = np.random.default_rng(SEED + 7)
+    reqs = [TopKRequest(draw(rng, 16), k=10, score=SCORES[i % 3])
+            for i in range(LIVE_REQUESTS)]
+    engine = QueryEngine(store)
+    want = [engine.topk(r.terms, k=10, score=r.score) for r in reqs]
+    got: list = [None] * len(reqs)
+    errors: list = []
+
+    def client(server, idx):
+        try:
+            cl = server.client()
+            for i in range(idx, len(reqs), LIVE_CLIENTS):
+                got[i] = cl.execute([reqs[i]], timeout=120.0, retries=3)[0]
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    if faults:
+        os.environ[faultinject.ENV_VAR] = faults
+    try:
+        t0 = time.perf_counter()
+        server = CoocServer(store.path, workers=LIVE_WORKERS, batch_window_ms=2.0).start()
+    finally:
+        os.environ.pop(faultinject.ENV_VAR, None)  # respawns spawn clean
+    try:
+        threads = [threading.Thread(target=client, args=(server, i))
+                   for i in range(LIVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        stats = server.stop(timeout=120)
+    run_s = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    for i, ((ids, scores), (wids, wscores)) in enumerate(zip(got, want)):
+        check(np.array_equal(ids, wids) and scores.tobytes() == wscores.tobytes(),
+              f"2e-iii: worker answer {i} ({reqs[i].score}) != the engine's")
+    respawns = stats["resilience"]["respawns"]
+    check(respawns == (1 if faults else 0), f"2e-iii: {respawns} respawns")
+    check(stats["workers_lost"] == 0, f"2e-iii: {stats['workers_lost']} workers lost")
+    return {"stats": stats, "run_s": run_s, "requests": len(reqs),
+            # a replacement that came up late may have had nothing left to do
+            "workers": worker_launches(stats, "2e-iii", every=not faults),
+            "launches": stats["kernel_launches"]["topk_gather"]}
+
+
+def print_live(st, sv, clean, killed, smi) -> None:
+    """The live store's lines: 2e-i, 2e-ii and 2e-iii."""
+    s1 = st["summary"]
+    lag, seal = s1["visibility_lag_ms"], s1["seal_s"]
+    print(f"[live] 2e-i stream ingest: {s1['docs_this_run']} docs in "
+          f"{s1['seals_this_run']} seals of {SEAL_DOCS} ({s1['method']} on "
+          f"{s1['device']}), {s1['wall_s']:.3f} s, {s1['docs_per_hour']} docs/hour; "
+          f"visibility lag p50 {lag['p50']:.1f} / p99 {lag['p99']:.1f} ms against "
+          f"a budget of {LIVE_LAG_MS:.0f} ms; seal p50 {seal['p50']:.3f} / p99 "
+          f"{seal['p99']:.3f} s; compaction (fanout {FANOUT}): "
+          f"{s1['compaction']['merges']} merges of "
+          f"{s1['compaction']['segments_merged']} segments, {s1['segments']} "
+          f"segments at the end; segment_hist launches "
+          f"{st['launches']['segment_hist']} | {smi}")
+    sd = sv["served"]
+    sv_ = sd["serving"]
+    timing = "; ".join(f"{k} p50 {v['p50']} / p99 {v['p99']} ms"
+                       for k, v in sd["server_timing"].items())
+    fr = sv_["freshness"]
+    fl = sd["stream"]
+    flag = fl.get("visibility_lag_ms", {})
+    print(f"[live] 2e-ii serving while following: {LIVE_WORKERS} workers, "
+          f"{LIVE_CLIENTS} clients, pmi k=10: {sd['topk_qps']} top-k QPS, client "
+          f"p50 {sd['topk_p50_ms']} / p99 {sd['topk_p99_ms']} ms, {sd['pair_qps']} "
+          f"pair QPS; server {timing}; {sv['serve_s']:.2f} s in serve() | {smi}")
+    print(f"[live] 2e-ii workers: topk_gather launches {sv['workers']}, devices "
+          f"{[w['device'] for w in sv_['per_worker']]}, start-up s "
+          f"{[round(x, 3) for x in sv_['worker_startup_s']]}; freshness: "
+          f"generation {sv['gen0']} -> {fr['generation']}, {fr['segments']} "
+          f"segments, {fr['seconds_since_last_append']} s since the last append; "
+          f"respawns {sv_['resilience']['respawns']}, workers lost "
+          f"{sd['workers_lost']}, shed {sd['shed']}")
+    print(f"[live] 2e-ii follow: {fl['docs_this_run']} docs in "
+          f"{fl['seals_this_run']} seals while serving, lag p50 "
+          f"{flag.get('p50', 0):.1f} / p99 {flag.get('p99', 0):.1f} ms against "
+          f"{LIVE_LAG_MS:.0f}; parent segment_hist launches "
+          f"{sv['launches']['segment_hist']}; --compact merged "
+          f"{len(sd.get('compaction', {}).get('merged', []))} segments; the rest "
+          f"({DOCS - LIVE_DOCS - sv['followed']} docs) drained from the cursor in "
+          f"{sv['drain_s']:.2f} s ({sv['drain_launches']['segment_hist']} launches); "
+          f"{sv['segments']} segments compacted to one in {sv['compact_s']:.2f} s; "
+          f"its CSR arrays identical to path 1's | {smi}")
+    for label, r in (("clean", clean), (f"with {KILL_SPEC}", killed)):
+        res = r["stats"]["resilience"]
+        print(f"[live] 2e-iii {label}: {r['requests']} requests in "
+              f"{r['run_s']:.2f} s, every answer equal to the engine's bit for "
+              f"bit; topk_gather launches per worker {r['workers']}, start-up s "
+              f"{[round(x, 3) for x in r['stats']['worker_startup_s']]}; respawns "
+              f"{res['respawns']}, worker_died failures "
+              f"{res['worker_died_failures']} | {smi}")
 
 
 # --------------------------------------------------------------- phase 3
@@ -928,8 +1168,26 @@ def run() -> int:
               f"{OPT_MEAN_LEN} ({oi['postings']} postings), each equal to host "
               f"list-scan: " + ", ".join(
                   f"{m} {t:.2f}s" for m, t in oi["secs"].items()) + f" | {smi}")
+        st = phase("2e-i live store: stream ingest", live_stream, c, ops.KERNELS)
+        sv = phase("2e-ii live store: serving while following, drain, compaction",
+                   live_serve, st, ops.KERNELS)
+        same_segments(sv["segment"].path, mp["store"].segments[0].path,
+                      "the compacted live store and path 1's store")
+        clean = phase("2e-iii live store: worker answers", live_answers,
+                      mp["store"], None)
+        killed = phase("2e-iii live store: one injected kill", live_answers,
+                       mp["store"], KILL_SPEC)
+        print_live(st, sv, clean, killed, smi)
+        live = {
+            "segment_hist": sum(x["segment_hist"] for x in (
+                st["launches"], sv["launches"], sv["drain_launches"])),
+            # the workers' own counts: launches in other processes
+            "topk_gather": sum(sv["workers"]) + clean["launches"] + killed["launches"],
+            "cooc_gram": 0, "bitpair": 0,
+        }
         paths = {"path 1": mp["launches"], "path 2": fs["launches"],
-                 "cooc_run": dr["launches"], "opt-in": oi["launches"]}
+                 "cooc_run": dr["launches"], "opt-in": oi["launches"],
+                 "live store": live}
         for path, counts in paths.items():
             print(f"[launches] {path}: {json.dumps(counts)}")
 

@@ -21,6 +21,8 @@ import subprocess
 import threading
 import time
 
+from repro_torch.device import DeviceError
+
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".build")
 NVCC_FLAGS = (
@@ -39,7 +41,7 @@ def nvcc_path() -> str:
     for c in cands:
         if c and os.path.isfile(c):
             return c
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    raise DeviceError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
 class CudaKernel:
@@ -47,7 +49,7 @@ class CudaKernel:
     built from them, and ``launches``, the count of successful launches.
 
     ``launch(*args)`` calls the C entry point (which returns the
-    ``cudaError_t`` of the launch) and raises ``RuntimeError`` unless it is
+    ``cudaError_t`` of the launch) and raises ``DeviceError`` unless it is
     0; only then does ``launches`` go up by one.
     """
 
@@ -91,7 +93,7 @@ class CudaKernel:
         self.build_s = time.perf_counter() - t0
         self.build_log = out
         if proc.returncode != 0:
-            raise RuntimeError(
+            raise DeviceError(
                 f"nvcc failed to build {self.name} (exit {proc.returncode}):\n{out}"
             )
         os.replace(tmp, lib)
@@ -115,7 +117,7 @@ class CudaKernel:
         code = self._load()(*args)
         if code != 0:
             msg = self._error_string(code).decode()
-            raise RuntimeError(f"{self.name} launch failed: CUDA error {code} ({msg})")
+            raise DeviceError(f"{self.name} launch failed: CUDA error {code} ({msg})")
         self.launches += 1
 
 
@@ -131,7 +133,7 @@ def build_all(kernels) -> dict:
         except RuntimeError as e:
             errors.append(str(e))
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise DeviceError("\n".join(errors))
     for k in kernels:
         k._load()
     return {k.name: k.build_s for k, s in started}

@@ -1,1 +1,3 @@
-"""Runtime support: work-unit fault tolerance (``runtime/fault.py``)."""
+"""Runtime support: work-unit fault tolerance (``runtime/fault.py``) and
+env-gated fault injection (``runtime/faultinject.py``) for scripting
+failures into serving workers."""

@@ -34,6 +34,7 @@ from repro_torch.kernels.cooc_gram import cooc_gram_cuda  # noqa: E402
 from repro_torch.kernels.segment_hist import KERNEL as SEGMENT_HIST  # noqa: E402
 from repro_torch.kernels.segment_hist import plan as segment_hist_plan  # noqa: E402
 from repro_torch.kernels.segment_hist import segment_hist_cuda  # noqa: E402
+from repro_torch.kernels.topk_gather import KERNEL as TOPK_GATHER  # noqa: E402
 from repro_torch.kernels.topk_gather import topk_gather_cuda  # noqa: E402
 
 SCORES = ["count", "pmi", "dice"]
@@ -371,3 +372,74 @@ def test_auto_builds_on_the_card(cuda, tmp_path):
         with open(os.path.join(card.path, name), "rb") as a, \
                 open(os.path.join(host.path, name), "rb") as b:
             assert a.read() == b.read(), name
+
+
+@pytest.mark.cuda
+def test_two_card_workers_answer_like_the_engine(cuda, tmp_path):
+    """A two-worker server on ``device="cuda"``: every answer equals the
+    in-process engine's on the card bit for bit (both run the same
+    kernel), and each worker launched ``topk_gather`` in its own process."""
+    from repro_torch.store import CoocServer, QueryEngine, Store, TopKRequest
+
+    c = synthetic_zipf_collection(400, vocab=2000, mean_len=40, seed=6)
+    store, _ = count_to_store("list-scan-segment", c, str(tmp_path / "s"))
+    engine = QueryEngine(Store.open(store.path))
+    rng = np.random.default_rng(6)
+    reqs = [TopKRequest(rng.integers(0, 2000, size=16), k=10, score=score)
+            for score in SCORES for _ in range(4)]
+    with CoocServer(store.path, workers=2, routing=True) as server:
+        got = server.client().execute(reqs, timeout=120.0)
+    for req, (ids, scores) in zip(reqs, got):
+        want_ids, want_scores = engine.topk(req.terms, k=10, score=req.score)
+        assert np.array_equal(ids, want_ids)
+        assert scores.tobytes() == want_scores.tobytes()
+    stats = server.stats()
+    assert stats["workers_lost"] == 0 and stats["resilience"]["respawns"] == 0
+    assert [w["device"] for w in stats["per_worker"]] == ["cuda", "cuda"]
+    assert all(w["kernel_launches"]["topk_gather"] > 0 for w in stats["per_worker"])
+
+
+@pytest.mark.cuda
+def test_stream_seals_on_the_card_equal_a_batch_build(cuda, tmp_path):
+    """Seals on the card (``list-scan-segment``, the device's own method)
+    launch ``segment_hist`` and compact into the bytes of a batch build."""
+    from repro_torch.store import Store
+    from repro_torch.stream import QueueSource, StreamConfig, StreamIngestor
+
+    c = synthetic_zipf_collection(300, vocab=3000, mean_len=60, seed=8)
+    store = Store.create(str(tmp_path / "live"), 3000)
+    src = QueueSource()
+    src.push_collection(c)
+    src.close()
+    before = SEGMENT_HIST.launches
+    summary = StreamIngestor(store, src, StreamConfig(seal_docs=64),
+                             source_id="q").run()
+    assert summary["method"] == "list-scan-segment" and summary["seals_this_run"] == 5
+    assert SEGMENT_HIST.launches > before
+    store.refresh()
+    store.compact()
+    _, host = count_to_store("list-scan", c, str(tmp_path / "host"), device="cpu")
+    for name in SEGMENT_ARRAYS:
+        with open(os.path.join(store.segments[0].path, name), "rb") as a, \
+                open(os.path.join(host.path, name), "rb") as b:
+            assert a.read() == b.read(), name
+
+
+@pytest.mark.cuda
+def test_follow_in_process_shares_the_card(cuda, tmp_path):
+    """``serve(workers=0, follow=...)``: the ingest thread's seals launch
+    ``segment_hist`` and the serving thread's queries ``topk_gather`` on
+    the same device; the followed documents all land in the store."""
+    from repro_torch.launch.cooc_serve import serve
+    from repro_torch.stream import collection_to_feed
+
+    feed = str(tmp_path / "feed.txt")
+    fed = synthetic_zipf_collection(200, vocab=2000, mean_len=40, seed=9)
+    collection_to_feed(feed, fed)
+    hist0, topk0 = SEGMENT_HIST.launches, TOPK_GATHER.launches
+    stats = serve(docs=300, vocab=2000, store_path=str(tmp_path / "s"),
+                  queries=256, batch=32, score="pmi", follow=feed)
+    assert SEGMENT_HIST.launches > hist0 and TOPK_GATHER.launches > topk0
+    assert stats["stream"]["healthy"] and stats["stream"]["device"] == "cuda"
+    assert stats["stream"]["cursor"]["docs"] == fed.num_docs
+    assert stats["num_docs"] == 300 + fed.num_docs

@@ -85,18 +85,63 @@ def test_default_device_without_a_card_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize(
-    "argv,slice_name",
+    "flags",
     [
-        (["--workers", "2"], "multi-process serving"),
-        (["--follow", "feed.txt"], "streaming ingest"),
-        (["--compact"], "background compaction"),
+        ["--workers", "2", "--clients", "2"],
+        ["--follow", "FEED", "--refresh-interval-ms", "50"],
+        ["--compact", "--build-segments", "3"],
+        ["--workers", "2", "--follow", "FEED", "--compact", "--build-segments", "2"],
     ],
 )
-def test_cli_rejects_flags_of_later_slices(argv, slice_name, capsys):
-    with pytest.raises(SystemExit) as e:
-        cooc_serve.main(argv)
-    assert e.value.code == 2
-    assert slice_name in capsys.readouterr().err
+def test_cli_runs_the_live_store_flags(flags, tmp_path, capsys):
+    """``--workers``, ``--follow`` and ``--compact`` on the host: the stats
+    JSON gains the reference driver's blocks (``serving.resilience``,
+    ``stream`` and ``serving.freshness``, ``compaction``)."""
+    from repro_torch.stream import collection_to_feed
+
+    feed = str(tmp_path / "feed.txt")
+    fed = synthetic_zipf_collection(50, vocab=128, mean_len=8, seed=9)
+    collection_to_feed(feed, fed)
+    argv = ["--docs", "120", "--vocab", "128", "--queries", "64", "--batch", "16",
+            "--score", "pmi", "--device", "cpu", "--store", str(tmp_path / "s"),
+            "--json", str(tmp_path / "stats.json")]
+    cooc_serve.main(argv + [feed if f == "FEED" else f for f in flags])
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats == json.load(open(tmp_path / "stats.json"))
+    assert stats["device"] == "cpu"
+    if "--workers" in flags:
+        serving = stats["serving"]
+        assert stats["workers"] == 2 and stats["workers_lost"] == 0
+        assert stats["shed"] == 0 and stats["deadline_timeouts"] == 0
+        assert serving["resilience"]["respawns"] == 0
+        assert [w["device"] for w in serving["per_worker"]] == ["cpu", "cpu"]
+        assert serving["freshness"]["generation"] >= 1
+    if "--follow" in flags:
+        # the stop seals what was buffered: the whole small feed went in
+        assert stats["stream"]["cursor"]["docs"] == fed.num_docs
+        assert stats["stream"]["healthy"] is True
+        assert stats["stream"]["method"] == "list-scan"
+        assert stats["num_docs"] == 120 + fed.num_docs
+    if "--compact" in flags:
+        nseg = int(flags[flags.index("--build-segments") + 1])
+        assert len(stats["compaction"]["merged"]) == nseg
+
+
+@pytest.mark.parametrize("driver", ["cooc_serve", "cooc_stream"])
+def test_drivers_take_every_flag_of_the_reference(driver):
+    """The port's drivers accept every flag of the JAX package's, with
+    ``--device`` in place of ``--kernel``."""
+    import importlib
+    import re
+
+    ref_src = os.path.join(SRC, "repro", "launch", f"{driver}.py")
+    with open(ref_src) as f:
+        ref_flags = set(re.findall(r'add_argument\(\s*"(--[a-z-]+)"', f.read()))
+    port = importlib.import_module(f"repro_torch.launch.{driver}")
+    port_flags = {o for a in port._parser()._actions for o in a.option_strings}
+    assert len(ref_flags) > 10
+    assert ref_flags - {"--kernel"} <= port_flags
+    assert "--device" in port_flags
 
 
 def test_port_imports_neither_jax_nor_the_reference():

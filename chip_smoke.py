@@ -51,9 +51,28 @@ without a card, without the repository beside it, or if any phase fails:
            byte-identical to path 1's;
       iii. 4 workers on path 1's store answer 256 fixed count/PMI/Dice top-k
            requests, each equal to the in-process engine's on the card (ids
-           and scores bit for bit); again with ``REPRO_FAULTS`` killing
+           and scores bit for bit; on a mismatch, the inputs the worker's
+           launch read that differ from the engine's are named); again
+           with ``REPRO_FAULTS`` killing
            worker 1 at its fourth batch: every answer still returns, after
            retries, with exactly one respawn.
+   f. Parallel path 1: path 1's collection counted with
+      ``list-scan-segment`` into a store in 16 shards by
+      ``ParallelExecutor(num_workers=4)``: four spawned workers, each in its
+      own CUDA context; the segment's files must equal path 1's store byte
+      for byte, and every worker that completed a shard must have launched
+      ``segment_hist`` on the card (its own count, from its report).
+   g. ``launch.cooc_run.run(..., ingest_workers=4)`` at its defaults: its
+      pairs file must equal phase 2c's byte for byte; the workers launch
+      ``cooc_gram`` and ``segment_hist``.
+   h. The distributed Gram: the incidence of path 2's 4,096 highest-df
+      terms (uint8 (20,000, 4,096)) on a (2, 2) ("data", "model") gloo
+      world of 4 ranks sharing the card, with both schedules
+      (``core.distributed.gram_on_world``); each rank's products run
+      ``cooc_gram`` on the card, and each C must equal one ``cooc_gram``
+      of the whole B on the card and ``gram_reference`` on the host
+      (``torch.equal``). The ring must issue point-to-point transfers and
+      no ``all_gather``, the all-gather schedule ``all_gather``.
 3. Kernels against their plain PyTorch versions on the card, with
    ``torch.equal`` (tolerance 0): ``segment_hist`` on path 1's head batch,
    the first tail batches of path 2 and of ``cooc_run``, a stream whose
@@ -83,7 +102,10 @@ without a card, without the repository beside it, or if any phase fails:
    the wrapper's host time per call on the host clock as well.
 4. Summary: build docs/hour of both paths beside the host builds, top-k QPS
    and p50/p99 for each score, the live store's docs/hour, visibility lag,
-   seals, merges, multi-worker QPS and worker start-up, where the time of
+   seals, merges, multi-worker QPS and worker start-up, the parallel
+   builds beside the serial ones (docs/hour, ready wait, counting and
+   finalize seconds, each worker's start-up), the distributed Gram's
+   seconds split into products, collectives and host copies, where the time of
    each build goes (stage
    spans, the device's busy share under the profiler, FREQ-SPLIT's head and
    tail), each kernel's summed device time in path 1's and path 2's
@@ -129,6 +151,10 @@ SEGMENT_ARRAYS = (
     "row_ptr.bin", "cols.bin", "counts.bin",
     "sym_row_ptr.bin", "sym_cols.bin", "sym_counts.bin",
 )
+# parallel ingest (2f, 2g): spill workers spawned on the card
+INGEST_WORKERS, INGEST_SHARDS = 4, 16
+# the distributed Gram (2h): the incidence of the GRAM_TERMS highest-df terms
+GRAM_TERMS, GRAM_MESH, GRAM_AXES = 4_096, (2, 2), ("data", "model")
 SCORES = ("count", "pmi", "dice")
 KERNEL_NAMES = ("segment_hist", "topk_gather", "cooc_gram", "bitpair")
 
@@ -364,6 +390,7 @@ def driver_path(kernels) -> dict:
           and filecmp.cmp(pairs, host_pairs, shallow=False),
           "the resumed run's pairs file differs")
     return {"cd": cd, "docs": cd.num_docs, "vocab": cd.vocab_size, "run_s": run_s,
+            "pairs": pairs,
             "host_s": host_s, "resume_s": resume_s, "launches": launches,
             "shards": res["num_shards"], "distinct_pairs": res["distinct_pairs"]}
 
@@ -505,9 +532,13 @@ def live_answers(store, faults: str | None) -> dict:
     rng = np.random.default_rng(SEED + 7)
     reqs = [TopKRequest(draw(rng, 16), k=10, score=SCORES[i % 3])
             for i in range(LIVE_REQUESTS)]
-    engine = QueryEngine(store)
-    want = [engine.topk(r.terms, k=10, score=r.score) for r in reqs]
+    engine = QueryEngine(store, report_inputs=True)
+    want, want_inputs = [], []
+    for r in reqs:
+        want.append(engine.topk(r.terms, k=10, score=r.score))
+        want_inputs.append(engine.last_inputs)
     got: list = [None] * len(reqs)
+    metas: list = [None] * len(reqs)
     errors: list = []
 
     def client(server, idx):
@@ -515,6 +546,7 @@ def live_answers(store, faults: str | None) -> dict:
             cl = server.client()
             for i in range(idx, len(reqs), LIVE_CLIENTS):
                 got[i] = cl.execute([reqs[i]], timeout=120.0, retries=3)[0]
+                metas[i] = cl.last_meta
         except Exception as e:  # re-raised below
             errors.append(e)
 
@@ -522,7 +554,8 @@ def live_answers(store, faults: str | None) -> dict:
         os.environ[faultinject.ENV_VAR] = faults
     try:
         t0 = time.perf_counter()
-        server = CoocServer(store.path, workers=LIVE_WORKERS, batch_window_ms=2.0).start()
+        server = CoocServer(store.path, workers=LIVE_WORKERS, batch_window_ms=2.0,
+                            report_inputs=True).start()
     finally:
         os.environ.pop(faultinject.ENV_VAR, None)  # respawns spawn clean
     try:
@@ -539,7 +572,8 @@ def live_answers(store, faults: str | None) -> dict:
         raise errors[0]
     for i, ((ids, scores), (wids, wscores)) in enumerate(zip(got, want)):
         check(np.array_equal(ids, wids) and scores.tobytes() == wscores.tobytes(),
-              f"2e-iii: worker answer {i} ({reqs[i].score}) != the engine's")
+              f"2e-iii: worker answer {i} ({reqs[i].score}) != the engine's; "
+              + inputs_diff(metas[i], want_inputs[i], reqs[i].terms))
     respawns = stats["resilience"]["respawns"]
     check(respawns == (1 if faults else 0), f"2e-iii: {respawns} respawns")
     check(stats["workers_lost"] == 0, f"2e-iii: {stats['workers_lost']} workers lost")
@@ -547,6 +581,28 @@ def live_answers(store, faults: str | None) -> dict:
             # a replacement that came up late may have had nothing left to do
             "workers": worker_launches(stats, "2e-iii", every=not faults),
             "launches": stats["kernel_launches"]["topk_gather"]}
+
+
+def inputs_diff(meta: dict, mine: dict, terms) -> str:
+    """Which inputs of a worker's top-k launch differ from the in-process
+    engine's for the same request (``report_inputs``): num_docs, the
+    manifest generation, and per row df of the term and the digest of the
+    row's ids, counts and neighbour dfs."""
+    theirs = meta["inputs"]
+    head = (f"worker {meta['worker']}, {meta['coalesced_requests']} requests "
+            f"coalesced, ")
+    diffs = [f"{k} {theirs[k]} != {mine[k]}" for k in ("num_docs", "generation")
+             if theirs[k] != mine[k]]
+    for key in ("df_t", "row_crc"):
+        rows = [b for b, (a, m) in enumerate(zip(theirs[key], mine[key])) if a != m]
+        if rows:
+            diffs.append(f"{key} differs in rows {rows} (terms "
+                         f"{[int(terms[b]) for b in rows]})")
+    if not diffs:
+        return head + (f"the same inputs (num_docs {mine['num_docs']}, generation "
+                       f"{mine['generation']}, every row's df and digest): only the "
+                       "arithmetic differed")
+    return head + "; ".join(diffs)
 
 
 def print_live(st, sv, clean, killed, smi) -> None:
@@ -599,6 +655,171 @@ def print_live(st, sv, clean, killed, smi) -> None:
               f"{[round(x, 3) for x in r['stats']['worker_startup_s']]}; respawns "
               f"{res['respawns']}, worker_died failures "
               f"{res['worker_died_failures']} | {smi}")
+
+
+# ------------------------------------------------------------ phase 2f-2h
+def ingest_workers(summary: dict, what: str, must: tuple) -> dict:
+    """The spill workers' own launch counts, summed. Every worker must exit
+    cleanly, the parent must have drained nothing, and each worker that
+    completed a shard must have counted on the card and launched every
+    kernel in ``must``."""
+    per = summary["per_worker"]
+    check(len(per) == INGEST_WORKERS, f"{what}: {len(per)} workers reported")
+    for w in per:
+        check(w["exitcode"] == 0, f"{what}: worker {w['worker']} exited {w['exitcode']}")
+        if w["shards"]:
+            check(w["device"] == "cuda", f"{what}: worker {w['worker']} ran on {w['device']}")
+            for name in must:
+                check(w["kernel_launches"][name] > 0,
+                      f"{what}: worker {w['worker']} launched {name} no time")
+    check(summary["parent_shards"] == 0,
+          f"{what}: the parent drained {summary['parent_shards']} shards")
+    return {k: sum(w["kernel_launches"][k] for w in per) for k in KERNEL_NAMES}
+
+
+def parallel_path(c, mp, kernels) -> dict:
+    """2f: path 1's build by INGEST_WORKERS spawned workers on the card, into
+    path 1's store bytes. Telemetry is on, so the workers' stage spans
+    join the parent's."""
+    from repro_torch import obs
+    from repro_torch.core.plan import CountJob, ParallelExecutor, Planner
+
+    plan = Planner().plan(CountJob(
+        collection=c, output="store", out_path=os.path.join(WORK, "par_store"),
+        method="list-scan-segment", num_shards=INGEST_SHARDS))
+    reset(kernels)
+    t0 = time.perf_counter()
+    with obs.scoped() as reg:
+        res = ParallelExecutor(num_workers=INGEST_WORKERS).execute(plan)
+    wall = time.perf_counter() - t0
+    parent = {k.name: k.launches for k in kernels}
+    check(not any(parent.values()), f"2f: the parent launched {parent}")
+    workers = ingest_workers(res.summary, "2f", ("segment_hist",))
+    same_segments(res.segment.path, mp["store"].segments[0].path,
+                  "the parallel build and path 1's store")
+    return {"summary": res.summary, "wall_s": wall, "launches": workers,
+            "stages": reg.stage_totals("ingest/")}
+
+
+def parallel_driver(dr, kernels) -> dict:
+    """2g: ``cooc_run`` at its defaults with INGEST_WORKERS workers; its
+    pairs file must equal phase 2c's."""
+    from repro_torch.launch import cooc_run
+
+    from repro_torch import obs
+
+    out = os.path.join(WORK, "cooc_run_par")
+    reset(kernels)
+    t0 = time.perf_counter()
+    with obs.scoped() as reg:
+        res = cooc_run.run(out_dir=out, ingest_workers=INGEST_WORKERS)
+    wall = time.perf_counter() - t0
+    parent = {k.name: k.launches for k in kernels}
+    check(not any(parent.values()), f"2g: the parent launched {parent}")
+    check(res["method"] == "freq-split", f"2g: cooc_run planned {res['method']}")
+    workers = ingest_workers(res, "2g", ("cooc_gram", "segment_hist"))
+    check(filecmp.cmp(os.path.join(out, "pairs.bin"), dr["pairs"], shallow=False),
+          "2g: the parallel cooc_run's pairs file differs from phase 2c's")
+    return {"summary": res, "wall_s": wall, "launches": workers,
+            "stages": reg.stage_totals("ingest/")}
+
+
+def gram_incidence(cd):
+    """uint8 (D, GRAM_TERMS) 0/1 incidence of the df-remapped collection's
+    GRAM_TERMS highest-df terms (IDs 0..GRAM_TERMS-1), by one scatter."""
+    import numpy as np
+
+    doc = np.repeat(np.arange(cd.num_docs), np.diff(cd.doc_ptr))
+    head = cd.terms < GRAM_TERMS
+    B = np.zeros((cd.num_docs, GRAM_TERMS), dtype=np.uint8)
+    B[doc[head], cd.terms[head]] = 1
+    return B
+
+
+def distributed_gram_path(cd) -> dict:
+    """2h: both schedules of the distributed Gram on a GRAM_MESH gloo world
+    sharing the card; C against one ``cooc_gram`` of all of B on the card
+    and ``gram_reference`` on the host. Launches are the ranks' own."""
+    import torch
+
+    from repro_torch.core.distributed import gram_on_world, gram_reference
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    B = gram_incidence(cd)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = gram_on_world(B, GRAM_MESH, GRAM_AXES, device="cuda")
+    world_s = time.perf_counter() - t0
+    for r in out["ranks"]:
+        check(r["device"].startswith("cuda"), f"2h: rank {r['rank']} ran on {r['device']}")
+        check(r["kernel_launches"]["cooc_gram"] > 0,
+              f"2h: rank {r['rank']} launched cooc_gram no time")
+        ring = r["schedules"]["ring"]["counters"]
+        ag = r["schedules"]["allgather"]["counters"]
+        check(ring.get("dist.p2p", 0) > 0 and "dist.all_gather" not in ring,
+              f"2h: the ring issued {ring}")
+        check(ag.get("dist.all_gather", 0) > 0, f"2h: the all-gather schedule issued {ag}")
+    Bt = torch.from_numpy(B)
+    t0 = time.perf_counter()
+    host = gram_reference(Bt)
+    host_s = time.perf_counter() - t0
+    Bd = Bt.cuda()
+    card = ops.cooc_gram(Bd, Bd).cpu()
+    check(torch.equal(card, host), "2h: cooc_gram of B on the card != gram_reference")
+    for sched, C in out["C"].items():
+        check(torch.equal(torch.from_numpy(C), host),
+              f"2h: the {sched} schedule's C != gram_reference")
+    per = {}
+    for sched in out["C"]:
+        reps = [r["schedules"][sched] for r in out["ranks"]]
+        per[sched] = {
+            "wall_s": max(x["wall_s"] for x in reps),
+            **{k: max(x["seconds"].get(k, 0.0) for x in reps)
+               for k in ("product", "collective", "host_copy")},
+            "host_copies": sum(x["counters"].get("dist.host_copies", 0) for x in reps),
+            "copied_mb": sum(x["counters"].get("dist.d2h_bytes", 0)
+                             + x["counters"].get("dist.h2d_bytes", 0) for x in reps) / 2**20,
+        }
+    return {"shape": B.shape, "nnz": int(B.sum()), "build_s": build_s,
+            "backend": out["ranks"][0]["backend"], "cards": torch.cuda.device_count(),
+            "world_s": world_s, "host_s": host_s, "schedules": per,
+            "launches": {k: sum(r["kernel_launches"][k] for r in out["ranks"])
+                         for k in KERNEL_NAMES}}
+
+
+def print_parallel(pf, pd, gm, mp, dr, smi) -> None:
+    """The lines of 2f, 2g and 2h, each beside its serial yardstick."""
+    for label, r, serial_s, docs in (
+            ("2f parallel path 1", pf, mp["build_s"], DOCS),
+            ("2g cooc_run --ingest-workers 4", pd, dr["run_s"], dr["docs"])):
+        s = r["summary"]
+        print(f"[parallel] {label}: {INGEST_WORKERS} workers, {s['num_shards']} shards "
+              f"({s['method']}): {r['wall_s']:.2f} s, {s['docs_per_hour']} docs/hour "
+              f"({s['docs_per_hour_work']} after the ready barrier); ready_wait_s "
+              f"{s['ready_wait_s']}, count_s {s['count_s']}, finalize_s "
+              f"{s['finalize_s']}, reclaims {s['reclaimed_shards']}; worker start-up s "
+              f"{[w['startup_s'] for w in s['per_worker']]}, shards "
+              f"{[w['shards'] for w in s['per_worker']]}, launches "
+              f"{[{k: n for k, n in w['kernel_launches'].items() if n} for w in s['per_worker']]}"
+              f"; serial in this run "
+              f"{serial_s:.2f} s ({docs / serial_s * 3600:.0f} docs/hour); output "
+              f"identical | {smi}")
+        stages = ", ".join(f"{n.split('/', 1)[1]} {t:.2f}s"
+                           for n, t in sorted(r["stages"].items()))
+        print(f"[where] {label} stages (inclusive; count and spill summed over "
+              f"the workers' shards): {stages}")
+    print(f"[gram] 2h B {gm['shape']} uint8 ({gm['nnz']} ones, built in "
+          f"{gm['build_s']:.2f} s), {GRAM_MESH} {GRAM_AXES} {gm['backend']} world of "
+          f"{GRAM_MESH[0] * GRAM_MESH[1]} ranks on {gm['cards']} card(s): world {gm['world_s']:.2f} s "
+          f"(spawn, both schedules); host gram_reference {gm['host_s']:.2f} s; "
+          f"cooc_gram launches in the ranks {gm['launches']['cooc_gram']} | {smi}")
+    for sched, t in gm["schedules"].items():
+        print(f"[gram] {sched}: {t['wall_s']:.4f} s (slowest rank): products "
+              f"{t['product']:.4f} s, collectives {t['collective']:.4f} s, host copies "
+              f"{t['host_copy']:.4f} s ({t['host_copies']} copies, "
+              f"{t['copied_mb']:.1f} MiB over all ranks); C equal to gram_reference "
+              f"and to cooc_gram of B | {smi}")
 
 
 # --------------------------------------------------------------- phase 3
@@ -1178,6 +1399,10 @@ def run() -> int:
         killed = phase("2e-iii live store: one injected kill", live_answers,
                        mp["store"], KILL_SPEC)
         print_live(st, sv, clean, killed, smi)
+        pf = phase("2f parallel path 1 (4 workers)", parallel_path, c, mp, ops.KERNELS)
+        pd = phase("2g cooc_run with 4 ingest workers", parallel_driver, dr, ops.KERNELS)
+        gm = phase("2h distributed Gram (2 x 2 gloo ranks)", distributed_gram_path, cd)
+        print_parallel(pf, pd, gm, mp, dr, smi)
         live = {
             "segment_hist": sum(x["segment_hist"] for x in (
                 st["launches"], sv["launches"], sv["drain_launches"])),
@@ -1187,7 +1412,8 @@ def run() -> int:
         }
         paths = {"path 1": mp["launches"], "path 2": fs["launches"],
                  "cooc_run": dr["launches"], "opt-in": oi["launches"],
-                 "live store": live}
+                 "live store": live, "parallel path 1": pf["launches"],
+                 "cooc_run, 4 workers": pd["launches"], "distributed Gram": gm["launches"]}
         for path, counts in paths.items():
             print(f"[launches] {path}: {json.dumps(counts)}")
 

@@ -7,7 +7,9 @@ list-scan, multi-scan); their kernel adaptations on the device
 ``bitpair``); the beyond-paper FREQ-SPLIT hybrid (``cooc_gram`` head,
 ``segment_hist`` tail); and the typed counting-plan API (``specs``/``plan``):
 the MethodSpec registry with §3 cost models, the Planner
-(``method="auto"``), and the serial, resumable PlanExecutor.
+(``method="auto"``), the serial, resumable PlanExecutor and the
+multi-process ParallelExecutor; and the multi-device Gram on
+``torch.distributed`` (``distributed``).
 
 Entry points::
 
@@ -23,6 +25,7 @@ from repro_torch.core.oracle import brute_force_counts
 from repro_torch.core.plan import (
     CountJob,
     ExecutionResult,
+    ParallelExecutor,
     Plan,
     PlanExecutor,
     Planner,
@@ -41,6 +44,7 @@ __all__ = [
     "CountJob",
     "Plan",
     "Planner",
+    "ParallelExecutor",
     "PlanExecutor",
     "ExecutionResult",
     "execute_job",

@@ -1,3 +1,4 @@
-"""Runtime support: work-unit fault tolerance (``runtime/fault.py``) and
+"""Runtime support: work-unit fault tolerance (``runtime/fault.py``),
 env-gated fault injection (``runtime/faultinject.py``) for scripting
-failures into serving workers."""
+failures into serving workers, and elastic re-meshing
+(``runtime/elastic.py``)."""

@@ -25,6 +25,7 @@ Scores (df = document frequency, D = total documents):
 
 from __future__ import annotations
 
+import zlib
 from collections import OrderedDict
 
 import numpy as np
@@ -65,6 +66,9 @@ class QueryEngine:
             cache/kernel-dispatch counters; ``None`` uses the process-global
             one (disabled by default — see repro/obs). Serving workers pass
             their own so metrics can cross the process boundary.
+        report_inputs: before each top-k launch, keep what it reads in
+            ``last_inputs`` (:meth:`inputs`), so an answer can be traced to
+            its inputs; serving workers send it with each top-k answer.
 
     Example::
 
@@ -81,17 +85,19 @@ class QueryEngine:
         cache_rows: int = 4096,
         device: str = "cuda",
         registry: "obs.Registry | None" = None,
+        report_inputs: bool = False,
     ):
         self.store = store
         self.cache_rows = cache_rows
         self.device = resolve_device(device)
         self.kernel = default_kernel(self.device.type)
         self._cache: OrderedDict[int, tuple[np.ndarray, np.ndarray]] = OrderedDict()
-        self._df = store.df()
-        self._num_docs = max(store.num_docs, 1)
+        self._view = self._read_view()
         self._store_version = store.version
         self.stats = {"cache_hits": 0, "cache_misses": 0}
         self._registry = registry
+        self.report_inputs = report_inputs
+        self.last_inputs: dict | None = None
 
     @property
     def registry(self) -> "obs.Registry":
@@ -100,11 +106,16 @@ class QueryEngine:
         return self._registry if self._registry is not None else obs.get_registry()
 
     # ----------------------------------------------------------- cache
+    def _read_view(self) -> tuple[np.ndarray, int, int]:
+        """``(df, num_docs, generation)`` of the store as it is now: one
+        tuple, swapped whole, so a reader never mixes two generations."""
+        return (self.store.df(), max(self.store.num_docs, 1),
+                int(self.store.manifest.get("generation", 0)))
+
     def _maybe_invalidate(self) -> None:
         if self.store.version != self._store_version:
             self._cache.clear()
-            self._df = self.store.df()
-            self._num_docs = max(self.store.num_docs, 1)
+            self._view = self._read_view()
             self._store_version = self.store.version
 
     def _row(self, t: int) -> tuple[np.ndarray, np.ndarray]:
@@ -251,6 +262,11 @@ class QueryEngine:
         ``(B,)``. Both df sides are clamped to >= 1: stores built without
         df metadata would otherwise divide by zero and tie every PMI
         candidate at +inf."""
+        return self._tile(terms)[0]
+
+    def _tile(self, terms: np.ndarray) -> tuple[tuple, int, int]:
+        """:meth:`tile`, with the ``num_docs`` and manifest generation of
+        the dfs it holds: what a launch over it must score with."""
         rows = [self._row(int(t)) for t in terms]
         L = max((len(r[0]) for r in rows), default=0)
         # round the pad length up to a power of two (few distinct shapes)
@@ -261,22 +277,53 @@ class QueryEngine:
         for b, (rids, rcnts) in enumerate(rows):
             ids[b, : len(rids)] = rids
             cnts[b, : len(rids)] = rcnts
-        df_n = np.where(ids >= 0, np.maximum(self._df[np.maximum(ids, 0)], 1), 1)
-        df_t = np.maximum(self._df[terms], 1)
+        df, num_docs, generation = self._view
+        df_n = np.where(ids >= 0, np.maximum(df[np.maximum(ids, 0)], 1), 1)
+        df_t = np.maximum(df[terms], 1)
         # int32 on the device, as the reference's x64-off conversion did
-        return tuple(a.astype(np.int32) for a in (ids, cnts, df_t, df_n))
+        tile = tuple(a.astype(np.int32) for a in (ids, cnts, df_t, df_n))
+        return tile, num_docs, generation
+
+    def inputs(self, tile, num_docs: int, generation: int) -> dict:
+        """What a top-k launch over ``tile`` reads: the ``num_docs`` it
+        scores with, the manifest ``generation`` the tile's dfs came from,
+        and per row ``df_t`` and ``row_crc``, a CRC-32 of the row's
+        valid ``(ids, cnts, df_n)`` — independent of the padding, so a row
+        built in a coalesced batch and the same row built alone give the
+        same digest.
+
+        Example::
+
+            eng.inputs(eng.tile(np.array([3, 17])), 4000, 3)["row_crc"]   # 2 ints
+        """
+        ids, cnts, df_t, df_n = tile
+        crc = []
+        for b in range(ids.shape[0]):
+            n = int(np.count_nonzero(ids[b] >= 0))
+            crc.append(zlib.crc32(
+                ids[b, :n].tobytes() + cnts[b, :n].tobytes() + df_n[b, :n].tobytes()
+            ))
+        return {
+            "num_docs": num_docs,
+            "generation": generation,
+            "df_t": [int(x) for x in df_t],
+            "row_crc": crc,
+        }
 
     def _topk_batch(
         self, terms: np.ndarray, k: int, score: str
     ) -> tuple[np.ndarray, np.ndarray]:
         """The batched gather + score + select launch (validated inputs)."""
-        ids, cnts, df_t, df_n = (
-            torch.from_numpy(a).to(self.device) for a in self.tile(terms)
-        )
+        # num_docs comes with the tile's dfs: a refresh from here on reaches
+        # neither the launch nor its report
+        tile, num_docs, generation = self._tile(terms)
+        if self.report_inputs:
+            self.last_inputs = self.inputs(tile, num_docs, generation)
+        ids, cnts, df_t, df_n = (torch.from_numpy(a).to(self.device) for a in tile)
         kk = min(k, ids.shape[1])
         top_ids, top_s = ops.topk_gather(
             ids, cnts, df_t, df_n,
-            num_docs=self._num_docs, score=score, k=kk,
+            num_docs=num_docs, score=score, k=kk,
         )
         top_ids = top_ids.cpu().numpy()
         top_s = top_s.cpu().numpy()

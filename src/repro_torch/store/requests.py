@@ -503,10 +503,16 @@ def _exec_topk(engine, group, emit, stats) -> None:
         return
     _bump(stats, "topk_launches")
     _bump(stats, "topk_queries", len(all_terms))
-    extra = {"coalesced_requests": len(live)}
+    inputs = engine.last_inputs if engine.report_inputs else None
     off = 0
     for tag, req in live:
         n = req.batch
+        extra = {"coalesced_requests": len(live)}
+        if inputs is not None:  # this request's rows of what the launch read
+            extra["inputs"] = {
+                **inputs, "df_t": inputs["df_t"][off:off + n],
+                "row_crc": inputs["row_crc"][off:off + n],
+            }
         emit(tag, True, (ids[off : off + n], scores[off : off + n]), extra=extra)
         off += n
 

@@ -189,6 +189,7 @@ class ServingConfig:
     refresh_interval_ms: float = 0.0  # 0 = refresh only between micro-batches
     max_inflight: int = 0             # per-queue envelope bound; 0 = unbounded
     max_respawns: int = 2             # supervisor respawn budget per worker slot
+    report_inputs: bool = False       # top-k answers carry what they read
 
     def __post_init__(self):
         if self.workers < 1:
@@ -357,7 +358,7 @@ def _worker_main(
     # (blocks decoded, cache hits, bloom negatives) ride the same snapshots
     engine = QueryEngine(
         Store.open(store_path, registry=reg), cache_rows=cfg.cache_rows,
-        device=cfg.device, registry=reg,
+        device=cfg.device, registry=reg, report_inputs=cfg.report_inputs,
     )
     if engine.device.type == "cuda":
         # warm the slot: the CUDA context and the kernel the parent built
@@ -863,6 +864,7 @@ class CoocServer:
         refresh_interval_ms: float = 0.0,
         max_inflight: int = 0,
         max_respawns: int = 2,
+        report_inputs: bool = False,
     ):
         from repro_torch.store.segments import Store
 
@@ -888,6 +890,7 @@ class CoocServer:
             refresh_interval_ms=refresh_interval_ms,
             max_inflight=max_inflight,
             max_respawns=max_respawns,
+            report_inputs=report_inputs,
         )
         self._stats_final: dict = {}
         self._worker_last: dict[int, dict] = {}   # freshest payload per worker

@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions.
 
-Every test here needs a CUDA device (the hand-written kernels have no CPU
-mode) and skips without one. This file imports neither JAX nor the
-reference package, so it runs on a GPU machine without JAX:
+Every test here but one needs a CUDA device (the hand-written kernels have
+no CPU mode) and skips without one; that one runs only where there is no
+card, and checks that a build asked onto the card fails there visibly.
+This file imports neither JAX nor the reference package, so it runs on a
+GPU machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -11,7 +13,9 @@ scores computed with the same accurate ``logf`` and IEEE division on both
 sides.
 """
 
+import glob
 import os
+import time
 
 import numpy as np
 import pytest
@@ -443,3 +447,82 @@ def test_follow_in_process_shares_the_card(cuda, tmp_path):
     assert stats["stream"]["healthy"] and stats["stream"]["device"] == "cuda"
     assert stats["stream"]["cursor"]["docs"] == fed.num_docs
     assert stats["num_docs"] == 300 + fed.num_docs
+
+
+@pytest.mark.cuda
+def test_parallel_ingest_on_the_card_equals_the_serial_card_build(cuda, tmp_path):
+    """``ParallelExecutor(2)`` with ``device="cuda"``: each spawned worker
+    counts in its own CUDA context (its own ``segment_hist`` launches, from
+    its report), and the store's bytes equal the serial card build's."""
+    from repro_torch.core.plan import CountJob, ParallelExecutor, Planner, PlanExecutor
+
+    c = synthetic_zipf_collection(400, vocab=6000, mean_len=40, seed=12)
+
+    def build(root, executor):
+        job = CountJob(collection=c, output="store", out_path=str(root / "store"),
+                       method="list-scan-segment", num_shards=6, dense_vocab_cap=1,
+                       memory_budget_pairs=4096)
+        return executor.execute(Planner().plan(job), out_dir=str(root / "wd"))
+
+    serial = build(tmp_path / "serial", PlanExecutor())
+    par = build(tmp_path / "par", ParallelExecutor(num_workers=2))
+    for name in SEGMENT_ARRAYS:
+        with open(os.path.join(serial.segment.path, name), "rb") as a, \
+                open(os.path.join(par.segment.path, name), "rb") as b:
+            assert a.read() == b.read(), name
+    per = par.summary["per_worker"]
+    assert [w["exitcode"] for w in per] == [0, 0] and par.summary["parent_shards"] == 0
+    for w in per:
+        assert w["device"] == "cuda"
+        assert w["shards"] == 0 or w["kernel_launches"]["segment_hist"] > 0
+
+
+def test_parallel_ingest_on_a_host_without_a_card_fails_visibly(tmp_path):
+    """``device="cuda"`` where there is no card: each spawned worker dies
+    resolving its device, and the parent's drain of the left-over shards
+    raises ``DeviceError`` on the job's device — no shard is counted on the
+    host, and no worker reports."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the workers would reach it")
+    from repro_torch.core.plan import CountJob, ParallelExecutor, Planner
+    from repro_torch.device import DeviceError
+
+    c = synthetic_zipf_collection(120, vocab=6000, mean_len=20, seed=12)
+    plan = Planner().plan(CountJob(
+        collection=c, output="store", out_path=str(tmp_path / "store"),
+        method="list-scan-segment", num_shards=4, dense_vocab_cap=1))
+    assert plan.method_kwargs["device"] == "cuda"
+    wd = tmp_path / "wd"
+    t0 = time.monotonic()
+    with pytest.raises(DeviceError, match="no CUDA device"):
+        ParallelExecutor(num_workers=2).execute(plan, out_dir=str(wd))
+    assert time.monotonic() - t0 < 60  # the ready barrier stops at dead workers
+    assert glob.glob(str(wd / "spill" / "shard_*")) == []
+    assert glob.glob(str(wd / "spill" / "**" / "*.bin"), recursive=True) == []
+    assert os.listdir(wd / "workers") == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1), (2, 2)])
+def test_distributed_gram_on_ranks_sharing_the_card(cuda, shape):
+    """A world of 2 or 4 ranks on the card: each rank's products run
+    ``cooc_gram`` there (its own launches) and both schedules give the
+    exact Gram. With fewer cards than ranks the world is gloo, the ranks
+    share ``cuda:0`` and their blocks travel through host copies; with a
+    card for each rank it is NCCL, on device blocks, with no copy."""
+    from repro_torch.core.distributed import gram_on_world
+
+    rng = np.random.default_rng(sum(shape))
+    B = (rng.random((600, 256)) < 0.15).astype(np.uint8)
+    want = B.T.astype(np.int64) @ B.astype(np.int64)
+    out = gram_on_world(B, shape, ("data", "model"), device="cuda")
+    for sched, C in out["C"].items():
+        assert np.array_equal(C, want), sched
+    nccl = torch.cuda.device_count() >= len(out["ranks"])
+    for r in out["ranks"]:
+        assert r["backend"] == ("nccl" if nccl else "gloo")
+        assert r["device"] == (f"cuda:{r['rank']}" if nccl else "cuda")
+        assert r["kernel_launches"]["cooc_gram"] > 0
+        for sched in ("allgather", "ring"):
+            copies = r["schedules"][sched]["counters"].get("dist.host_copies", 0)
+            assert (copies == 0) if nccl else (copies > 0), (sched, copies)

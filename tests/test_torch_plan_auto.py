@@ -295,6 +295,8 @@ def test_cooc_run_resume_counts_no_shard_again(tmp_path, monkeypatch):
 
 
 def test_cooc_run_cli_rejects_ingest_workers(capsys):
+    """N > 1 ingest workers run (tests/test_torch_parallel_ingest.py);
+    fewer than one is refused before anything runs."""
     with pytest.raises(SystemExit):
-        cooc_run.main(["--ingest-workers", "2", "--device", "cpu"])
-    assert "ParallelExecutor" in capsys.readouterr().err
+        cooc_run.main(["--ingest-workers", "0", "--device", "cpu"])
+    assert "--ingest-workers must be at least 1" in capsys.readouterr().err

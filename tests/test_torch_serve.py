@@ -149,12 +149,18 @@ def test_port_imports_neither_jax_nor_the_reference():
         m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
     )
     assert "repro_torch.kernels.ops" in names and len(names) > 20
+    # the modules of the multi-device slice: importing them starts no world
+    assert {"repro_torch.core.distributed", "repro_torch.runtime.elastic",
+            "repro_torch.launch.mesh"} <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}:\n"
         "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'repro' or m.startswith('repro.')]\n"
+        "import torch.distributed as dist\n"
+        "if dist.is_available() and dist.is_initialized():\n"
+        "    bad.append('a process group')\n"
         "print(json.dumps(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))

@@ -496,3 +496,74 @@ def test_server_serves_through_background_compaction(coll, tmp_path):
     assert 0.0 <= stats["storage"]["block_cache_hit_rate"] <= 1.0
     store.refresh()
     assert len(store.segment_names) == 1
+
+
+def test_workers_report_the_inputs_of_each_top_k_answer(store_path):
+    """``report_inputs=True``: each top-k answer carries what its launch
+    read — num_docs, the manifest generation, and per row df of the term
+    and a digest of the row's (ids, counts, df of the neighbours). A row
+    built inside a coalesced batch digests like the same row built alone
+    in the in-process engine, so on a mismatch the first input that
+    differs is named."""
+    engine = QueryEngine(Store.open(store_path), device="cpu", report_inputs=True)
+    rng = np.random.default_rng(21)
+    reqs = [TopKRequest(rng.integers(0, 128, size=6), k=5, score="pmi")
+            for _ in range(12)]
+    got, metas = [None] * len(reqs), [None] * len(reqs)
+    with serve_cpu(store_path, batch_window_ms=20.0, report_inputs=True) as server:
+        def client_loop(idx):
+            client = server.client()
+            for i in range(idx, len(reqs), 3):
+                got[i] = client.execute([reqs[i]], timeout=60.0)[0]
+                metas[i] = client.last_meta
+
+        threads = [threading.Thread(target=client_loop, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    assert max(m["coalesced_requests"] for m in metas) > 1  # rows shared tiles
+    for req, (ids, scores), meta in zip(reqs, got, metas):
+        want = engine.topk(req.terms, k=5, score="pmi")
+        assert np.array_equal(ids, want[0]) and scores.tobytes() == want[1].tobytes()
+        assert meta["inputs"] == engine.last_inputs
+        assert len(meta["inputs"]["row_crc"]) == len(req.terms)
+    # a different count in one row changes that row's digest alone
+    tile, num_docs, generation = engine._tile(reqs[0].terms)
+    base = engine.inputs(tile, num_docs, generation)["row_crc"]
+    tile[1][2, 0] += 1
+    changed = engine.inputs(tile, num_docs, generation)["row_crc"]
+    assert [a != b for a, b in zip(changed, base)] == [i == 2 for i in range(6)]
+
+
+def test_a_refresh_after_the_tile_reaches_neither_the_launch_nor_its_report(coll, tmp_path):
+    """A refresh that lands between building a top-k tile and its launch
+    (another thread of the process following a feed) must not mix
+    generations: the launch scores the tile with the ``num_docs`` it was
+    built with, and ``report_inputs`` reports those and their generation.
+    Appending the collection again doubles every count, df and num_docs,
+    which leaves PMI as it was, so only a mixed launch changes the scores."""
+    path = str(tmp_path / "race_store")
+    store, _ = count_to_store("list-scan", coll, path, device="cpu")
+    engine = QueryEngine(Store.open(path), device="cpu", report_inputs=True)
+    terms = np.arange(8)
+    want = engine.topk(terms, k=5, score="pmi")
+    before = dict(engine.last_inputs)
+    build = engine._tile
+
+    def tile_then_refresh(t):  # the failpoint: the refresh lands here
+        built = build(t)
+        store.append_collection(coll, method="list-scan")
+        assert engine.store.refresh()
+        engine._maybe_invalidate()
+        return built
+
+    engine._tile = tile_then_refresh
+    ids, scores = engine.topk(terms, k=5, score="pmi")
+    assert np.array_equal(ids, want[0]) and scores.tobytes() == want[1].tobytes()
+    assert engine.last_inputs == before
+    engine._tile = build
+    after = engine.topk(terms, k=5, score="pmi")
+    assert engine.last_inputs["num_docs"] == 2 * before["num_docs"]
+    assert engine.last_inputs["generation"] > before["generation"]
+    np.testing.assert_array_max_ulp(after[1], want[1], maxulp=1)

@@ -73,6 +73,32 @@ without a card, without the repository beside it, or if any phase fails:
       of the whole B on the card and ``gram_reference`` on the host
       (``torch.equal``). The ring must issue point-to-point transfers and
       no ``all_gather``, the all-gather schedule ``all_gather``.
+   i. LM serving at full width, for ``minicpm3-4b`` (MLA, dense SwiGLU)
+      and ``olmoe-1b-7b`` (GQA, QK-norm, 64 experts top-8), random weights
+      drawn on the card from the seed, each model freed before the next:
+      i.   card against host: a copy cut to 2 layers, float32 with TF32
+           off, the same weights on the card and the CPU, forward logits of
+           2 x 64 tokens within max abs 1e-3;
+      ii.  decode against forward (the reference's
+           ``test_decode_matches_forward``) at full depth in float32: batch
+           2, 32 positions decoded one at a time against one forward,
+           within max abs 2e-2; OLMoE at capacity_factor = 64 / 8, where
+           nothing drops;
+      iii. ``launch.serve.serve`` in bf16, batch 8, prompt 1,024, 64
+           generated tokens, timed after one untimed ``serve()`` of the same
+           weights and prompts: every logit finite, (8, 64) tokens out;
+           prefill and decode tokens/s, ms a decode step (and each step by
+           CUDA events) beside its bound (the bytes it must read over 3.35
+           TB/s, counting for OLMoE only the experts that the warm-up's
+           step routed to, and beside it the bound with every expert read,
+           as ``moe_ffn`` does), peak memory; then 4 decode steps of that shape under the
+           profiler: device time and kernels a step, the largest ops.
+      Where a token's experts differ between two OLMoE runs, its token,
+      layer and router probability gap are printed; the gates may skip
+      tokens whose k-th and (k+1)-th router probabilities differ by less
+      than 1e-5 (counted and printed), and a flip at any other token fails.
+      The LM path runs none of the four kernels (the reference's LM modules
+      reach no ``pl.pallas_call``): its launch counts are printed, all 0.
 3. Kernels against their plain PyTorch versions on the card, with
    ``torch.equal`` (tolerance 0): ``segment_hist`` on path 1's head batch,
    the first tail batches of path 2 and of ``cooc_run``, a stream whose
@@ -105,7 +131,8 @@ without a card, without the repository beside it, or if any phase fails:
    seals, merges, multi-worker QPS and worker start-up, the parallel
    builds beside the serial ones (docs/hour, ready wait, counting and
    finalize seconds, each worker's start-up), the distributed Gram's
-   seconds split into products, collectives and host copies, where the time of
+   seconds split into products, collectives and host copies, the LM lines
+   of 2i and their JSON line ``{"lm": [...]}``, where the time of
    each build goes (stage
    spans, the device's busy share under the profiler, FREQ-SPLIT's head and
    tail), each kernel's summed device time in path 1's and path 2's
@@ -155,6 +182,12 @@ SEGMENT_ARRAYS = (
 INGEST_WORKERS, INGEST_SHARDS = 4, 16
 # the distributed Gram (2h): the incidence of the GRAM_TERMS highest-df terms
 GRAM_TERMS, GRAM_MESH, GRAM_AXES = 4_096, (2, 2), ("data", "model")
+# LM serving at full width (2i): the two LM configs that fit one card whole
+LM_ARCHS = ("minicpm3-4b", "olmoe-1b-7b")
+LM_HOST_TOKENS, LM_DECODE_TOKENS = (2, 64), (2, 32)  # (batch, positions)
+LM_HOST_TOL, LM_DECODE_TOL = 1e-3, 2e-2  # max abs on float32 logits
+LM_NEAR_TIE = 1e-5  # router probability gap under which a token may flip
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 1_024, 64
 SCORES = ("count", "pmi", "dice")
 KERNEL_NAMES = ("segment_hist", "topk_gather", "cooc_gram", "bitpair")
 
@@ -822,6 +855,349 @@ def print_parallel(pf, pd, gm, mp, dr, smi) -> None:
               f"and to cooc_gram of B | {smi}")
 
 
+# --------------------------------------------------------------- phase 2i
+class RouterTap:
+    """Inside ``with``: records, for every MoE call of the port's
+    transformer (one a layer, in layer order), each token's top-k experts
+    (as a sorted set) and the gap between its k-th and (k+1)-th router
+    probabilities, then runs the call unchanged. A measurement tap: it
+    rebinds ``models.transformer.moe_ffn_ep`` for the ``with`` block only."""
+
+    def __init__(self):
+        from repro_torch.models import transformer as T
+
+        self.T, self.calls = T, []
+
+    def __enter__(self):
+        self.orig = self.T.moe_ffn_ep
+        self.T.moe_ffn_ep = self._tap
+        return self
+
+    def __exit__(self, *exc):
+        self.T.moe_ffn_ep = self.orig
+
+    def _tap(self, params, x, **kw):
+        import torch
+
+        k = kw["top_k"]
+        probs = torch.softmax((x @ params["router"]).float(), dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True, stable=True)
+        experts = torch.sort(top.indices[..., :k], dim=-1).values
+        gap = top.values[..., k - 1] - top.values[..., k]
+        self.calls.append((experts.cpu(), gap.double().cpu()))
+        return self.orig(params, x, **kw)
+
+    def routing(self, n_layers: int):
+        """(experts (L, B, S, k), gaps (L, B, S)) of a forward (one call a
+        layer) or of a run of decode steps (one call a layer a step)."""
+        import torch
+
+        steps = len(self.calls) // n_layers
+        ex = [torch.cat([self.calls[t * n_layers + l][0] for t in range(steps)], 1)
+              for l in range(n_layers)]
+        gp = [torch.cat([self.calls[t * n_layers + l][1] for t in range(steps)], 1)
+              for l in range(n_layers)]
+        return torch.stack(ex), torch.stack(gp)
+
+
+def near_ties(cfg, tap_a, tap_b, what: str):
+    """Where some token's experts differ between runs a and b, each such
+    token is printed with its layer and gap, and must be a near-tie: its
+    k-th and (k+1)-th router probabilities in some layer of run a differ
+    by less than LM_NEAR_TIE. Then the logit gate skips every near-tie
+    token: returns a (B, S) bool mask of tokens to keep. With no flip (or
+    no MoE) it returns None, and every token is compared."""
+    import torch
+
+    if not cfg.moe:
+        return None
+    ex_a, gap_a = tap_a.routing(cfg.n_layers)
+    ex_b, _ = tap_b.routing(cfg.n_layers)
+    tie = (gap_a < LM_NEAR_TIE).any(dim=0)
+    flips = (ex_a != ex_b).any(dim=-1)  # (L, B, S)
+    if not flips.any():
+        return None
+    for l, b, s in flips.nonzero().tolist():
+        print(f"[lm] {cfg.name} {what}: router flip at token ({b}, {s}), layer {l}, "
+              f"probability gap {gap_a[l, b, s].item():.3e} (experts "
+              f"{ex_a[l, b, s].tolist()} vs {ex_b[l, b, s].tolist()})")
+        check(bool(tie[b, s]), f"2i {cfg.name} {what}: a router flip at token "
+              f"({b}, {s}), layer {l}, gap {gap_a[l, b, s].item():.3e} >= {LM_NEAR_TIE}")
+    return ~tie
+
+
+def masked_err(a, b, keep) -> float:
+    """max |a - b| over the tokens ``keep`` marks (all when None)."""
+    if keep is not None:
+        a, b = a[keep], b[keep]
+    return max_abs_err(a, b)
+
+
+def lm_card_vs_host(arch: str) -> dict:
+    """2i-i: a full-width copy cut to 2 layers, float32, on the card and on
+    the host with the same weights; forward logits of 2 x 64 tokens."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_spec
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_spec(arch).model, n_layers=2, dtype="float32")
+    card = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    host = T.TransformerLM(cfg, "cpu")
+    host.load_state_dict(card.state_dict())
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, LM_HOST_TOKENS).astype(np.int32)
+    out = {}
+    for name, model, dev in (("card", card, "cuda"), ("host", host, "cpu")):
+        with torch.inference_mode(), RouterTap() as tap:
+            out[name] = (T.forward(model, torch.from_numpy(tokens).to(dev), cfg)[0].cpu(), tap)
+    keep = near_ties(cfg, out["host"][1], out["card"][1], "card vs host")
+    err = masked_err(out["card"][0], out["host"][0], keep)
+    skipped = 0 if keep is None else int((~keep).sum())
+    check(bool(torch.isfinite(out["card"][0]).all()), f"2i {arch}: card logits not finite")
+    check(err <= LM_HOST_TOL, f"2i {arch}: card vs host logits differ by {err:.3e} "
+          f"> {LM_HOST_TOL}")
+    return {"max_abs_err": err, "skipped": skipped}
+
+
+def lm_decode_vs_forward(arch: str) -> dict:
+    """2i-ii: the reference test ``test_decode_matches_forward`` at full
+    width and depth in float32: batch 2, 32 positions decoded one at a
+    time against one forward. OLMoE runs at capacity_factor = E / k, as the
+    smoke configs do, so that no token drops."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_spec
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_spec(arch).model, dtype="float32")
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    model = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    B, S = LM_DECODE_TOKENS
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+    with torch.inference_mode():
+        with RouterTap() as fwd:
+            full, _, _ = T.forward(model, tokens, cfg)
+        cache = T.init_cache(cfg, B, S, "cuda")
+        steps = []
+        with RouterTap() as dec:
+            for t in range(S):
+                logits, cache = T.decode_step(model, cache, tokens[:, t:t + 1], t, cfg)
+                steps.append(logits)
+        stepped = torch.stack(steps, dim=1)
+    keep = near_ties(cfg, fwd, dec, "decode vs forward")
+    err = masked_err(stepped.cpu(), full.cpu(), keep)
+    skipped = 0 if keep is None else int((~keep).sum())
+    del model, cache
+    check(err < LM_DECODE_TOL, f"2i {arch}: decode vs forward differ by {err:.3e} "
+          f">= {LM_DECODE_TOL}")
+    return {"max_abs_err": err, "skipped": skipped,
+            "capacity_factor": cfg.capacity_factor}
+
+
+def expert_bytes(cfg) -> int:
+    """bf16 bytes of one expert's weights in one layer (0 for a dense FFN)."""
+    import math
+
+    from repro_torch.models import transformer as T
+
+    if not cfg.moe:
+        return 0
+    layers = T.param_shapes(cfg)["layers"]
+    return sum(math.prod(layers[k][2:]) for k in ("moe_w_in", "moe_w_out", "moe_w_gate")
+               if k in layers) * 2
+
+
+def decode_bounds_ms(cfg, batch: int, prompt_len: int, gen: int,
+                     experts_read: list[int] | None = None) -> list[float]:
+    """The least time of each decode step: the bytes it must move over
+    HBM_BYTES_PER_S. Every weight but the embedding table and the experts
+    is read, then the experts: ``experts_read[t]`` (expert, layer) pairs at
+    step t, the distinct experts its tokens route to in each layer summed
+    over layers. With None every expert of every layer is counted, which is
+    what ``moe_ffn`` reads (it runs every expert's matmul). Also the batch's
+    embedding rows, the cache up to and including the step's position (the
+    new entries written), and the float32 logits written."""
+    item = 2  # bf16
+    width = (cfg.kv_lora_rank + cfg.qk_rope_dim if cfg.attn == "mla"
+             else 2 * cfg.n_kv_heads * cfg.d_head)
+    all_experts = cfg.n_layers * cfg.n_experts
+    per_expert = expert_bytes(cfg)
+    dense = (cfg.num_params() - cfg.vocab_size * cfg.d_model) * item \
+        - all_experts * per_expert
+    if experts_read is None:
+        experts_read = [all_experts] * (gen - 1)
+    return [
+        (dense + experts_read[t] * per_expert + batch * cfg.d_model * item
+         + cfg.n_layers * batch * (prompt_len + t + 1) * width * item
+         + batch * cfg.vocab_size * 4) / HBM_BYTES_PER_S * 1e3
+        for t in range(gen - 1)
+    ]
+
+
+def routed_experts(cfg, tap) -> list[int] | None:
+    """From a RouterTap over one ``serve()`` (a prefill call a layer, then a
+    call a layer a decode step): for each decode step, the distinct experts
+    its tokens route to in each layer, summed over layers."""
+    if not cfg.moe:
+        return None
+    L = cfg.n_layers
+    steps = len(tap.calls) // L - 1
+    return [sum(int(tap.calls[L * (t + 1) + l][0].unique().numel()) for l in range(L))
+            for t in range(steps)]
+
+
+def lm_serving(arch: str) -> dict:
+    """2i-iii: ``launch.serve.serve`` at full width in the config's own
+    dtype (bf16), batch 8, prompt 1,024, 64 generated tokens. One untimed
+    ``serve()`` of the same weights and prompts comes first, so that the
+    timed run meets no first-use cost (GEMM heuristics, allocator growth);
+    a RouterTap over it records the experts each decode step routes to,
+    for the bound. Where both runs generate the same tokens (reported as
+    ``warm_tokens_equal``), they routed the same way."""
+    import torch
+    from repro_torch.configs import get_spec
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+
+    spec = get_spec(arch)
+    cfg = spec.model
+    model = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    kw = dict(batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN, seed=SEED,
+              device="cuda", cfg=cfg, params=model)
+    with RouterTap() as tap:
+        warm, _ = serve(arch, **kw)
+    out, st = serve(arch, **kw)
+    del model
+    check(out.shape == (LM_BATCH, LM_GEN), f"2i {arch}: generated {out.shape}")
+    check(st["logits_finite"], f"2i {arch}: a logit of prefill or decode is not finite")
+    routed = routed_experts(cfg, tap)
+    bounds = decode_bounds_ms(cfg, LM_BATCH, LM_PROMPT, LM_GEN, routed)
+    impl = decode_bounds_ms(cfg, LM_BATCH, LM_PROMPT, LM_GEN)
+    return {
+        "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / st["prefill_s"],
+        "decode_tokens_per_s": LM_BATCH * (LM_GEN - 1) / st["decode_s"],
+        "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+        "decode_step_ms": st["decode_step_ms"],
+        "decode_bound_ms": sum(bounds) / len(bounds),
+        "decode_impl_bound_ms": sum(impl) / len(impl),
+        "experts_read_per_step": (None if routed is None
+                                  else sum(routed) / len(routed)),
+        "decode_steps_ms": st["decode_steps_ms"], "decode_bounds_ms": bounds,
+        "peak_mem_bytes": st["peak_mem_bytes"],
+        "warm_tokens_equal": bool((warm == out).all()),
+    }
+
+
+def lm_decode_device_time(arch: str, steps: int = 4) -> dict:
+    """Where a bf16 decode step of 2i-iii's shape goes: ``steps`` steps
+    (batch 8, positions from 1,024 of a cache of 1,088) under the profiler,
+    after one warm-up step; the device time and the kernels a step, and the
+    largest device ops."""
+    import torch
+    from repro_torch.configs import get_spec
+    from repro_torch.models import transformer as T
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_spec(arch).model
+    model = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    cache = T.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, "cuda")
+    tokens = torch.zeros((LM_BATCH, 1), dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        T.decode_step(model, cache, tokens, LM_PROMPT, cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(steps):
+                T.decode_step(model, cache, tokens, LM_PROMPT + i, cfg)
+            torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ops = sorted(((e.key, e.self_device_time_total / 1e3 / steps) for e in dev),
+                 key=lambda kv: -kv[1])
+    del model, cache
+    return {"device_ms": sum(t for _, t in ops),
+            "kernels": sum(e.count for e in dev) / steps, "top_ops": ops[:4]}
+
+
+def lm_path() -> list[dict]:
+    """Phase 2i for each model in LM_ARCHS: steps i, ii and iii, in that
+    order, each model freed before the next. TF32 is off for i and ii."""
+    import gc
+
+    import torch
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    rows = []
+    for arch in LM_ARCHS:
+        row = {"arch": arch}
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            for step, fn in (("host_check", lm_card_vs_host),
+                             ("decode_check", lm_decode_vs_forward)):
+                t0 = time.perf_counter()
+                row[step] = fn(arch)
+                row[step]["s"] = time.perf_counter() - t0
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        row.update(lm_serving(arch))
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["decode_profile"] = lm_decode_device_time(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows.append(row)
+    return rows
+
+
+def cfg_pairs(arch: str) -> int:
+    from repro_torch.configs import get_spec
+
+    cfg = get_spec(arch).model
+    return cfg.n_layers * cfg.n_experts
+
+
+def print_lm(rows, smi) -> None:
+    for r in rows:
+        hc, dc = r["host_check"], r["decode_check"]
+        print(f"[lm] {r['arch']} 2 layers, float32: card vs host forward logits "
+              f"max abs {hc['max_abs_err']:.3e} (gate {LM_HOST_TOL}; {hc['skipped']} "
+              f"near-tie tokens skipped) in {hc['s']:.1f} s; full depth, float32: "
+              f"decode vs forward max abs {dc['max_abs_err']:.3e} (gate "
+              f"{LM_DECODE_TOL}, capacity_factor {dc['capacity_factor']}; "
+              f"{dc['skipped']} skipped) in {dc['s']:.1f} s")
+        print(f"[lm] {r['arch']} bf16, batch {LM_BATCH}, prompt {LM_PROMPT}, gen "
+              f"{LM_GEN}: prefill {r['prefill_s']:.4f} s ({r['prefill_tokens_per_s']:.1f} "
+              f"tokens/s), decode {r['decode_tokens_per_s']:.1f} tokens/s, "
+              f"{r['decode_step_ms']:.4f} ms a step against a bound of "
+              f"{r['decode_bound_ms']:.4f} ms by bytes "
+              f"({r['decode_bound_ms'] / r['decode_step_ms']:.1%} of bound"
+              + ("" if r["experts_read_per_step"] is None else
+                 f"; {r['experts_read_per_step']:.2f} (expert, layer) pairs routed a "
+                 f"step of {cfg_pairs(r['arch'])}; {r['decode_impl_bound_ms']:.4f} ms if "
+                 "every expert is read, as moe_ffn does")
+              + f", after an untimed warm-up serve; warm-up tokens equal: "
+              f"{r['warm_tokens_equal']}); peak "
+              f"memory {r['peak_mem_bytes'] / 2**30:.2f} GiB | {smi}")
+        dp = r["decode_profile"]
+        print(f"[where] {r['arch']} decode step under the profiler: device "
+              f"{dp['device_ms']:.4f} ms a step, {dp['kernels']:.0f} kernels a step "
+              f"({dp['device_ms'] / r['decode_step_ms']:.1%} of the step's "
+              f"{r['decode_step_ms']:.4f} ms in 2i-iii); top device ops: "
+              + "; ".join(f"{n[:48]} {t:.4f} ms" for n, t in dp["top_ops"]) + f" | {smi}")
+        print(f"[lm] {r['arch']} each decode step, ms (CUDA events) / bound ms: "
+              + ", ".join(f"{t:.3f}/{b:.4f}" for t, b in
+                          zip(r["decode_steps_ms"], r["decode_bounds_ms"])))
+    print(json.dumps({"lm": [dict(r, device=smi) for r in rows]}))
+
+
 # --------------------------------------------------------------- phase 3
 def first_tail_batch(col, dev):
     """The first ``segment_hist`` launch of FREQ-SPLIT's tail on ``col`` at
@@ -1403,6 +1779,10 @@ def run() -> int:
         pd = phase("2g cooc_run with 4 ingest workers", parallel_driver, dr, ops.KERNELS)
         gm = phase("2h distributed Gram (2 x 2 gloo ranks)", distributed_gram_path, cd)
         print_parallel(pf, pd, gm, mp, dr, smi)
+        reset(ops.KERNELS)
+        lm = phase("2i LM serving at full width", lm_path)
+        lm_launches = launched(ops.KERNELS, (), "LM serving")
+        print_lm(lm, smi)
         live = {
             "segment_hist": sum(x["segment_hist"] for x in (
                 st["launches"], sv["launches"], sv["drain_launches"])),
@@ -1413,7 +1793,8 @@ def run() -> int:
         paths = {"path 1": mp["launches"], "path 2": fs["launches"],
                  "cooc_run": dr["launches"], "opt-in": oi["launches"],
                  "live store": live, "parallel path 1": pf["launches"],
-                 "cooc_run, 4 workers": pd["launches"], "distributed Gram": gm["launches"]}
+                 "cooc_run, 4 workers": pd["launches"], "distributed Gram": gm["launches"],
+                 "LM serving": lm_launches}
         for path, counts in paths.items():
             print(f"[launches] {path}: {json.dumps(counts)}")
 

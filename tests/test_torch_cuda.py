@@ -526,3 +526,43 @@ def test_distributed_gram_on_ranks_sharing_the_card(cuda, shape):
         for sched in ("allgather", "ring"):
             copies = r["schedules"][sched]["counters"].get("dist.host_copies", 0)
             assert (copies == 0) if nccl else (copies > 0), (sched, copies)
+
+
+@pytest.mark.cuda
+def test_minicpm3_decode_step_at_full_width_on_the_card_equals_the_host(cuda):
+    """MiniCPM3-4B at full width cut to 2 layers, float32 with TF32 off:
+    prefill, then one ``decode_step`` on the card and on the host with the
+    same weights; logits and the written cache within max abs 1e-3. The LM
+    path is plain PyTorch, so this holds the card's library kernels
+    (cuBLAS, the reductions) to the host's."""
+    import dataclasses
+
+    from repro_torch.configs import get_spec
+    from repro_torch.models import transformer as LM
+
+    cfg = dataclasses.replace(get_spec("minicpm3-4b").model, n_layers=2, dtype="float32")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = LM.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+        host = LM.TransformerLM(cfg, "cpu")
+        host.load_state_dict(card.state_dict())
+        B, P = 2, 16
+        tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, P + 1))
+        out = []
+        for model, dev in ((card, cuda), (host, torch.device("cpu"))):
+            t = torch.from_numpy(tokens.astype(np.int32)).to(dev)
+            with torch.inference_mode():
+                _, pre = LM.prefill(model, t[:, :P], cfg)
+                cache = LM.init_cache(cfg, B, P + 1, dev)
+                for name, c in cache.items():
+                    c[:, :, :P] = pre[name]
+                logits, cache = LM.decode_step(model, cache, t[:, P:], P, cfg)
+            out.append((logits.cpu(), {n: c.cpu() for n, c in cache.items()}))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (lc, cc), (lh, ch) = out
+    assert torch.isfinite(lc).all()
+    assert (lc - lh).abs().max().item() < 1e-3
+    for name in cc:
+        assert (cc[name] - ch[name]).abs().max().item() < 1e-3, name

@@ -99,6 +99,36 @@ without a card, without the repository beside it, or if any phase fails:
       than 1e-5 (counted and printed), and a flip at any other token fails.
       The LM path runs none of the four kernels (the reference's LM modules
       reach no ``pl.pallas_call``): its launch counts are printed, all 0.
+   j. GraphSAGE-Reddit and the four recsys rankers (DIEN, BERT4Rec,
+      xDeepFM, BST) at their published widths, float32 with TF32 off,
+      random weights drawn on the card from the seed (the rankers' full
+      tables: 0.48-1.61 GiB), each model freed before the next:
+      i.   card against host (a card copy with N(0, 0.05^2) added to every
+           weight, so that the outputs stand at least 100 times above the
+           gate, and its host copy from the card's ``state_dict``), max abs
+           1e-4 on logits and scores: ``forward_full_graph`` on a
+           ``random_graph(2_708, 4)`` at full_graph_sm's widths,
+           ``forward_sampled`` on one minibatch_lg batch (1,024 seeds,
+           fanout (15, 10)), ``forward_batched_graphs`` on molecule (128
+           graphs of 30 nodes and 64 edges); each ranker's forward at batch
+           64 (``bert4rec_logits`` for BERT4Rec) and ``retrieval_scores``
+           over 4,096 candidates;
+      ii.  timed by CUDA events (median of 20 calls after a warm-up), each
+           beside its bound (bytes over 3.35 TB/s against matmul FLOPs over
+           67 TFLOP/s, float32) and its peak memory: minibatch_lg on a
+           ``random_graph(232_965, 492)`` with (232,965, 602) features on
+           the card, 20 batches sampled on the host and gathered on the
+           card (sampler, gather and forward ms, seeds/s); ogb_products'
+           full-graph forward on a ``random_graph(2_449_029, 25)`` (both
+           graphs built by ``random_graph_on_device``: the same arrays, the
+           search and sort on the card; 1.0%
+           fewer edges than the cell, printed as a cut); molecule; each
+           ranker's serve_p99 (512), serve_bulk (262,144; BERT4Rec cut to
+           4,096, xDeepFM to 65,536) and retrieval_cand (1M candidates;
+           xDeepFM cut to 65,536), every cut printed. Outputs must be
+           finite and of the reference's shapes. No kernel of the four
+           runs (the reference's GNN and recsys modules reach no
+           ``pl.pallas_call``): the launch counts print 0.
 3. Kernels against their plain PyTorch versions on the card, with
    ``torch.equal`` (tolerance 0): ``segment_hist`` on path 1's head batch,
    the first tail batches of path 2 and of ``cooc_run``, a stream whose
@@ -132,7 +162,9 @@ without a card, without the repository beside it, or if any phase fails:
    builds beside the serial ones (docs/hour, ready wait, counting and
    finalize seconds, each worker's start-up), the distributed Gram's
    seconds split into products, collectives and host copies, the LM lines
-   of 2i and their JSON line ``{"lm": [...]}``, where the time of
+   of 2i and their JSON line ``{"lm": [...]}``, the ``[gnn]`` and
+   ``[recsys]`` lines of 2j and their JSON line ``{"gnn_recsys": ...}``,
+   where the time of
    each build goes (stage
    spans, the device's busy share under the profiler, FREQ-SPLIT's head and
    tail), each kernel's summed device time in path 1's and path 2's
@@ -188,6 +220,30 @@ LM_HOST_TOKENS, LM_DECODE_TOKENS = (2, 64), (2, 32)  # (batch, positions)
 LM_HOST_TOL, LM_DECODE_TOL = 1e-3, 2e-2  # max abs on float32 logits
 LM_NEAR_TIE = 1e-5  # router probability gap under which a token may flip
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 1_024, 64
+# GraphSAGE and the recsys rankers at full width (2j), float32, TF32 off
+GNN_ARCH, RANKERS = "graphsage-reddit", ("dien", "bert4rec", "xdeepfm", "bst")
+GNN_RECSYS_TOL = 1e-4  # max abs on float32 logits and scores, card vs host
+# 2j-i compares at the init weights plus N(0, CHECK_NOISE^2) on every leaf:
+# init leaves biases and norms at 0 and 1 and the rankers' outputs at 4e-6
+# to 8e-3, where an absolute gate of 1e-4 would pass a wrong answer; the
+# host's outputs must reach CHECK_SCALE times the gate
+CHECK_NOISE, CHECK_SCALE = 0.05, 100
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
+TIMED_CALLS = 20  # CUDA-event-timed calls after a warm-up; the median is reported
+PROFILED_CALLS = 3  # calls of each timed case under the profiler, for its device time
+CHECK_BATCH, CHECK_CANDIDATES = 64, 4_096
+# random_graph takes an integer mean degree: Reddit's 492 gives 114,618,780
+# edges (the cell's 114,615,892); ogbn-products' 25 gives 61,225,725 (61,859,140)
+REDDIT_DEGREE, PRODUCTS_DEGREE = 492, 25
+MINIBATCHES = 20
+# serve_bulk is a batch of 262,144 and retrieval_cand 1,000,000 candidates;
+# cut where one call's float32 activations pass the card: BERT4Rec's
+# (B, 20, 54,546) logits (1.14 TB at 262,144), xDeepFM's CIN outer product
+# (B, 200, 39, 10) (81.8 GB at 262,144; its retrieval is a full forward a
+# candidate, 312 GB at 1M)
+BULK_BATCH = {"dien": 262_144, "bst": 262_144, "bert4rec": 4_096, "xdeepfm": 65_536}
+RETRIEVAL_CANDIDATES = {"dien": 1_000_000, "bert4rec": 1_000_000, "bst": 1_000_000,
+                        "xdeepfm": 65_536}
 SCORES = ("count", "pmi", "dice")
 KERNEL_NAMES = ("segment_hist", "topk_gather", "cooc_gram", "bitpair")
 
@@ -1198,6 +1254,475 @@ def print_lm(rows, smi) -> None:
     print(json.dumps({"lm": [dict(r, device=smi) for r in rows]}))
 
 
+# --------------------------------------------------------------- phase 2j
+def event_ms(fn, verify) -> dict:
+    """``fn()`` timed call by call by CUDA events after one warm-up call:
+    the median, least and most ms of TIMED_CALLS calls, and the peak device
+    memory of one call. ``verify`` is applied to the warm-up's output,
+    which is dropped before the timed calls."""
+    import torch
+
+    torch.cuda.synchronize()
+    out = fn()
+    verify(out)
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+    for _ in range(TIMED_CALLS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    ms = sorted(s.elapsed_time(e) for s, e in marks)
+    return {"ms": ms[len(ms) // 2], "min_ms": ms[0], "max_ms": ms[-1],
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def profiled(t: dict, fn) -> dict:
+    """Add to a timed case the device time a call under the profiler
+    (PROFILED_CALLS calls) and its three largest device ops, ms a call."""
+    def run():
+        for _ in range(PROFILED_CALLS):
+            fn()  # each output dropped before the next call, as in event_ms
+
+    _, dev_s, ops_ = device_busy(run)
+    t["device_ms"] = dev_s / PROFILED_CALLS * 1e3
+    t["top_ops"] = [(name[:48], s / PROFILED_CALLS * 1e3) for name, s in ops_[:3]]
+    return t
+
+
+def matmul_flops(fn) -> int:
+    """The matrix-product FLOPs of one ``fn()`` call (matmuls, einsums,
+    attention products), counted by ``torch.utils.flop_counter`` on this
+    call's shapes; elementwise work, gathers and scatters are not counted."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    return int(fc.get_total_flops())
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def on_card(a):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+
+def check_pair(model):
+    """A card copy of a GraphSAGE or Ranker with N(0, CHECK_NOISE^2) added
+    to every leaf (from a generator seeded with SEED), and its host copy
+    from the card's state_dict: the weights the 2j-i checks compare at.
+    ``model`` itself is left as it is, for the timed cells."""
+    import torch
+
+    card = type(model)(model.cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    with torch.no_grad():
+        for p, q in zip(card.parameters(), model.parameters()):
+            p.copy_(q + CHECK_NOISE * torch.randn(q.shape, generator=gen, device="cuda"))
+    host = type(model)(model.cfg, "cpu")
+    host.load_state_dict(card.state_dict())
+    return card, host
+
+
+def card_vs_host(what: str, card, host, run, shape: tuple) -> dict:
+    """``run(model, device)`` on the card and on the host: the card's
+    output must be finite, of ``shape``, and within GNN_RECSYS_TOL of the
+    host's (max abs), and the host's must reach CHECK_SCALE times that."""
+    import torch
+
+    with torch.inference_mode():
+        got = run(card, "cuda").cpu()
+        want = run(host, "cpu")
+    finite_of_shape(what, shape)(got)
+    err, scale = max_abs_err(got, want), float(want.abs().max())
+    check(scale >= CHECK_SCALE * GNN_RECSYS_TOL, f"2j {what}: host outputs reach only "
+          f"{scale:.3e}, under {CHECK_SCALE} times the gate {GNN_RECSYS_TOL}")
+    check(err <= GNN_RECSYS_TOL, f"2j {what}: card vs host max abs {err:.3e} > "
+          f"{GNN_RECSYS_TOL}")
+    return {"what": what, "max_abs_err": err, "max_abs": scale}
+
+
+def finite_of_shape(what: str, shape: tuple):
+    """A check for event_ms: the output is finite and of ``shape``."""
+    import torch
+
+    def _check(out):
+        check(tuple(out.shape) == shape, f"2j {what}: shape {tuple(out.shape)} != {shape}")
+        check(bool(torch.isfinite(out).all()), f"2j {what}: output not finite")
+    return _check
+
+
+def edge_index_of(g):
+    """(2, E) int32 (src, dst) of a CSRGraph, its edges grouped by dst."""
+    import numpy as np
+
+    dst = np.repeat(np.arange(g.num_nodes, dtype=np.int32), np.diff(g.indptr))
+    return np.stack([g.indices, dst])
+
+
+def gnn_model(shape: str):
+    """GraphSAGE-Reddit's widths at one of its shape cells (d_feat and
+    n_classes from the cell), random weights drawn on the card."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_spec
+    from repro_torch.models import gnn
+
+    spec = get_spec(GNN_ARCH)
+    sz = spec.shapes[shape].sizes
+    cfg = dataclasses.replace(spec.model, d_in=sz["d_feat"], n_classes=sz["n_classes"])
+    model = gnn.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    return cfg, sz, model
+
+
+def gnn_case(what: str, fn, shape: tuple, input_bytes: int, params) -> dict:
+    """Time ``fn`` (a forward) and bound it: bytes are its inputs, the
+    parameters and the float32 output; FLOPs its matrix products."""
+    import numpy as np
+
+    t = event_ms(fn, finite_of_shape(what, shape))
+    moved = input_bytes + nbytes(*params.parameters()) + 4 * int(np.prod(shape))
+    t["bound_ms"], t["bound_by"] = bound(moved, matmul_flops(fn), F32_FLOPS_PER_S)
+    t["what"] = what
+    return profiled(t, fn)
+
+
+def gnn_path() -> dict:
+    """2j for GraphSAGE: i. card against host on full_graph_sm,
+    minibatch_lg (one batch) and molecule; ii. the timed cells."""
+    import numpy as np
+    import torch
+    from repro_torch.data.sampler import random_graph, random_graph_on_device, sample_blocks
+    from repro_torch.models import gnn
+
+    out = {"checks": [], "cases": []}
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    # full_graph_sm: a Cora-sized graph at its feature width
+    cfg, sz, card = gnn_model("full_graph_sm")
+    g = random_graph(sz["n_nodes"], 4, seed=SEED)
+    ei, feats = edge_index_of(g), rng.standard_normal((g.num_nodes, cfg.d_in), np.float32)
+    out["checks"].append(card_vs_host(
+        "full_graph_sm forward_full_graph", *check_pair(card),
+        lambda m, dev: gnn.forward_full_graph(
+            m, torch.from_numpy(feats).to(dev), torch.from_numpy(ei).to(dev), cfg),
+        (g.num_nodes, cfg.n_classes)))
+
+    # molecule: 128 graphs of 30 nodes and 64 edges as one disjoint graph
+    cfg, sz, card = gnn_model("molecule")
+    n_g, nodes, edges = sz["batch"], sz["n_nodes"], sz["n_edges"]
+    mol_feats = torch.randn((n_g * nodes, cfg.d_in), generator=gen, device="cuda")
+    base = np.repeat(np.arange(n_g) * nodes, edges)
+    mol_ei = on_card((rng.integers(0, nodes, (2, n_g * edges)) + base).astype(np.int32))
+    gid = on_card(np.repeat(np.arange(n_g), nodes).astype(np.int32))
+
+    def molecule(m, dev):
+        return gnn.forward_batched_graphs(m, mol_feats.to(dev), mol_ei.to(dev),
+                                          gid.to(dev), cfg, n_g)
+
+    out["checks"].append(card_vs_host("molecule forward_batched_graphs", *check_pair(card),
+                                      molecule, (n_g, cfg.n_classes)))
+    with torch.inference_mode():
+        out["cases"].append(gnn_case(
+            "molecule forward_batched_graphs", lambda: molecule(card, "cuda"),
+            (n_g, cfg.n_classes), nbytes(mol_feats, mol_ei, gid), card))
+
+    # minibatch_lg: Reddit's node count and mean degree, features on the card
+    cfg, sz, card = gnn_model("minibatch_lg")
+    t0 = time.perf_counter()
+    g = random_graph_on_device(sz["n_nodes"], REDDIT_DEGREE, seed=SEED)
+    out["reddit"] = {"nodes": g.num_nodes, "edges": g.num_edges, "shape_edges": sz["n_edges"],
+                     "graph_s": time.perf_counter() - t0}
+    feats = torch.randn((g.num_nodes, cfg.d_in), generator=gen, device="cuda")
+    fanout, B = tuple(sz["fanout"]), sz["batch_nodes"]
+
+    def gather(blocks):
+        return [feats[on_card(b).long()] for b in blocks]
+
+    def sampled(m, dev, hops):
+        return gnn.forward_sampled(m, *(h.to(dev) for h in hops), cfg)
+
+    hops = gather(sample_blocks(g, rng.choice(g.num_nodes, B, replace=False), fanout, rng))
+    out["checks"].append(card_vs_host("minibatch_lg forward_sampled", *check_pair(card),
+                                      lambda m, dev: sampled(m, dev, hops), (B, cfg.n_classes)))
+    with torch.inference_mode():
+        fwd = gnn_case("minibatch_lg forward_sampled (one batch)",
+                       lambda: sampled(card, "cuda", hops), (B, cfg.n_classes),
+                       nbytes(*hops), card)
+        del hops
+        sample_ms, gather_ms, forward_ms = [], [], []
+        torch.cuda.synchronize()
+        t_all = time.perf_counter()
+        for _ in range(MINIBATCHES):
+            t0 = time.perf_counter()
+            blocks = sample_blocks(g, rng.choice(g.num_nodes, B, replace=False), fanout, rng)
+            sample_ms.append((time.perf_counter() - t0) * 1e3)
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            marks[0].record()
+            hops = gather(blocks)
+            marks[1].record()
+            logits = sampled(card, "cuda", hops)
+            marks[2].record()
+            torch.cuda.synchronize()
+            gather_ms.append(marks[0].elapsed_time(marks[1]))
+            forward_ms.append(marks[1].elapsed_time(marks[2]))
+            check(bool(torch.isfinite(logits).all()), "2j minibatch_lg: logits not finite")
+        wall = time.perf_counter() - t_all
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    fwd.update(batches=MINIBATCHES, sample_ms=med(sample_ms), gather_ms=med(gather_ms),
+               batch_forward_ms=med(forward_ms), seeds_per_s=MINIBATCHES * B / wall,
+               seeds=B, fanout=fanout)
+    out["cases"].append(fwd)
+    del g, feats, hops, logits
+
+    # ogb_products: the full-graph forward at its node count and features
+    cfg, sz, card = gnn_model("ogb_products")
+    t0 = time.perf_counter()
+    g = random_graph_on_device(sz["n_nodes"], PRODUCTS_DEGREE, seed=SEED)
+    ei = on_card(edge_index_of(g))
+    out["products"] = {"nodes": g.num_nodes, "edges": g.num_edges,
+                       "shape_edges": sz["n_edges"], "graph_s": time.perf_counter() - t0}
+    del g
+    feats = torch.randn((sz["n_nodes"], cfg.d_in), generator=gen, device="cuda")
+    with torch.inference_mode():
+        out["cases"].append(gnn_case(
+            "ogb_products forward_full_graph",
+            lambda: gnn.forward_full_graph(card, feats, ei, cfg),
+            (sz["n_nodes"], cfg.n_classes), nbytes(feats, ei), card))
+    return out
+
+
+def ranker_batch(kind: str, cfg, B: int, rng) -> dict:
+    """A batch of ``kind``'s inputs on the card, ids drawn uniformly over
+    each table: DIEN histories right-padded (-1) to a length of at least
+    half the sequence, BERT4Rec sequences with their masked positions set
+    to [MASK], xDeepFM bags padded from a random length of at least 1."""
+    import numpy as np
+
+    i32 = lambda a: on_card(np.asarray(a, np.int32))  # noqa: E731
+    if kind in ("dien", "bst"):
+        T = cfg.seq_len
+        items = rng.integers(0, cfg.n_items, (B, T))
+        b = {"target_item": i32(rng.integers(0, cfg.n_items, B))}
+        if kind == "dien":
+            pad = np.arange(T) >= rng.integers(T // 2, T + 1, B)[:, None]
+            cats = rng.integers(0, cfg.n_cats, (B, T))
+            items[pad] = cats[pad] = -1
+            b.update(hist_cats=i32(cats), target_cat=i32(rng.integers(0, cfg.n_cats, B)))
+        return dict(b, hist_items=i32(items))
+    if kind == "bert4rec":
+        S, M = cfg.seq_len, cfg.n_masked
+        items = rng.integers(0, cfg.n_items, (B, S))
+        positions = np.argsort(rng.random((B, S)), axis=1)[:, :M]
+        items[np.arange(B)[:, None], positions] = cfg.n_items
+        return {"items": i32(items), "positions": i32(positions)}
+    n_single = cfg.n_fields - cfg.n_multi_hot
+    vocabs = np.asarray(cfg.field_vocabs)
+    multi = rng.integers(0, vocabs[n_single:, None], (B, cfg.n_multi_hot, cfg.max_bag))
+    multi[np.arange(cfg.max_bag) >= rng.integers(1, cfg.max_bag + 1,
+                                                 (B, cfg.n_multi_hot))[..., None]] = -1
+    return {"single_ids": i32(rng.integers(0, vocabs[:n_single], (B, n_single))),
+            "multi_ids": i32(multi)}
+
+
+def table_bytes(kind: str, cfg, model, batch, cands=None) -> int:
+    """The bytes of embedding rows a call must read: each distinct id's
+    row once (xDeepFM: its embedding and linear rows at the field
+    offsets), or for BERT4Rec's logits the whole table (the output head);
+    with ``cands``, the candidates' rows as well."""
+    import torch
+
+    def rows(ids, row_bytes):
+        ids = torch.cat([i.reshape(-1) for i in ids])
+        return int(torch.unique(ids[ids >= 0]).numel()) * row_bytes
+
+    item_row = 4 * cfg.embed_dim
+    if kind == "xdeepfm":
+        from repro_torch.models.recsys import _xdeepfm_field_offsets
+
+        offs = on_card(_xdeepfm_field_offsets(cfg))
+        n_single = cfg.n_fields - cfg.n_multi_hot
+        m = batch["multi_ids"]
+        ids = [batch["single_ids"] + offs[:n_single],
+               torch.where(m >= 0, m + offs[n_single:, None], -1)]
+        if cands is not None:
+            ids.append(cands)
+        return rows(ids, 4 * (cfg.embed_dim + 1))
+    if kind == "bert4rec":
+        table = nbytes(model["item_embed"])
+        return table if cands is None else table + rows([cands], item_row)
+    ids = [batch["hist_items"]] + ([batch["target_item"]] if cands is None else [cands])
+    out = rows(ids, item_row)
+    if kind == "dien":
+        cats = [batch["hist_cats"]] + ([batch["target_cat"]] if cands is None else [])
+        out += rows(cats, item_row)
+    return out
+
+
+def ranker_forward(kind: str):
+    from repro_torch.models import recsys
+
+    if kind == "bert4rec":
+        return lambda m, b, cfg: recsys.bert4rec_logits(m, b["items"], b["positions"], cfg)
+    return recsys.FORWARD_FNS[kind]
+
+
+def ranker_case(kind, cfg, model, what: str, fn, shape: tuple, batch, cands=None) -> dict:
+    """Time ``fn`` and bound it: bytes are the embedding rows it must read
+    (``table_bytes``), its ids and its float32 output (the dense weights,
+    under 6 MB a model, are left out); FLOPs its matrix products."""
+    import numpy as np
+
+    t = event_ms(fn, finite_of_shape(f"{cfg.name} {what}", shape))
+    ids = nbytes(*batch.values()) + (0 if cands is None else nbytes(cands))
+    moved = table_bytes(kind, cfg, model, batch, cands) + ids + 4 * int(np.prod(shape))
+    t["bound_ms"], t["bound_by"] = bound(moved, matmul_flops(fn), F32_FLOPS_PER_S)
+    t["what"], t["batch"] = what, shape[0]
+    return profiled(t, fn)
+
+
+def ranker_path(kind: str) -> dict:
+    """2j for one ranker at full width: i. its forward at batch 64 and
+    retrieval over 4,096 candidates, card against host; ii. serve_p99,
+    serve_bulk (cut where BULK_BATCH says) and retrieval_cand (cut where
+    RETRIEVAL_CANDIDATES says), timed."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_spec
+    from repro_torch.models import recsys
+
+    spec = get_spec(kind)
+    cfg = spec.model
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    model = recsys.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    row = {"arch": kind, "params": sum(p.numel() for p in model.parameters()),
+           "init_s": time.perf_counter() - t0, "checks": [], "cases": []}
+    forward = ranker_forward(kind)
+    out_shape = ((lambda B: (B, cfg.n_masked, cfg.n_items)) if kind == "bert4rec"
+                 else (lambda B: (B,)))
+    rows = cfg.field_vocabs[0] if kind == "xdeepfm" else cfg.n_items
+
+    def to(b, dev):
+        return {k: v.to(dev) for k, v in b.items()}
+
+    chk, host = check_pair(model)
+    b = ranker_batch(kind, cfg, CHECK_BATCH, rng)
+    ctx = {k: v[:1] for k, v in b.items()}
+    cands = on_card(rng.integers(0, rows, CHECK_CANDIDATES).astype(np.int32))
+    row["checks"].append(card_vs_host(
+        f"{kind} forward", chk, host, lambda m, dev: forward(m, to(b, dev), cfg),
+        out_shape(CHECK_BATCH)))
+    row["checks"].append(card_vs_host(
+        f"{kind} retrieval_scores", chk, host,
+        lambda m, dev: recsys.retrieval_scores(m, to(ctx, dev), cands.to(dev), cfg),
+        (CHECK_CANDIDATES,)))
+    del chk, host
+    gc_card()
+
+    with torch.inference_mode():
+        for cell, B in (("serve_p99", spec.shapes["serve_p99"].sizes["batch"]),
+                        ("serve_bulk", BULK_BATCH[kind])):
+            b = ranker_batch(kind, cfg, B, rng)
+            t = ranker_case(kind, cfg, model, cell, lambda: forward(model, b, cfg),
+                            out_shape(B), b)
+            t["shape_batch"] = spec.shapes[cell].sizes["batch"]
+            row["cases"].append(t)
+            del b
+            gc_card()
+        C = RETRIEVAL_CANDIDATES[kind]
+        ctx = ranker_batch(kind, cfg, 1, rng)
+        cands = on_card(rng.integers(0, rows, C).astype(np.int32))
+        t = ranker_case(kind, cfg, model, "retrieval_cand",
+                        lambda: recsys.retrieval_scores(model, ctx, cands, cfg), (C,),
+                        ctx, cands)
+        t["shape_batch"] = spec.shapes["retrieval_cand"].sizes["n_candidates"]
+        row["cases"].append(t)
+    del model
+    gc_card()
+    return row
+
+
+def gc_card() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def gnn_recsys_path() -> dict:
+    """Phase 2j: GraphSAGE, then each ranker (each freed before the next),
+    float32 with TF32 off throughout."""
+    import torch
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {"gnn": gnn_path()}
+        gc_card()
+        out["recsys"] = [ranker_path(kind) for kind in RANKERS]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
+def show_case(t: dict) -> str:
+    return (f"{t['ms']:.4f} ms (median of {TIMED_CALLS}, {t['min_ms']:.4f}-"
+            f"{t['max_ms']:.4f}) against a bound of {t['bound_ms']:.4f} ms by "
+            f"{t['bound_by']} ({t['bound_ms'] / t['ms']:.1%} of bound), peak "
+            f"{t['peak_bytes'] / 2**30:.2f} GiB; device {t['device_ms']:.4f} ms a "
+            f"call under the profiler ({t['device_ms'] / t['ms']:.1%} busy), top: "
+            + "; ".join(f"{n} {ms:.4f}" for n, ms in t["top_ops"]))
+
+
+def print_gnn_recsys(gr: dict, smi: str) -> None:
+    gn = gr["gnn"]
+    for c in gn["checks"] + [c for r in gr["recsys"] for c in r["checks"]]:
+        print(f"[gnn/recsys] 2j-i {c['what']}: card vs host max abs "
+              f"{c['max_abs_err']:.3e} (gate {GNN_RECSYS_TOL}; host outputs up to "
+              f"{c['max_abs']:.3e})")
+    for name, gph in (("minibatch_lg", gn["reddit"]), ("ogb_products", gn["products"])):
+        cut = gph["edges"] / gph["shape_edges"] - 1
+        print(f"[gnn] {name} graph: random_graph of {gph['nodes']:,} nodes, "
+              f"{gph['edges']:,} edges against the cell's {gph['shape_edges']:,} "
+              f"({cut:+.2%}{', a cut' if cut < 0 else ''}), built in {gph['graph_s']:.2f} s "
+              "(draws on the host, search and sort on the card)")
+    for t in gn["cases"]:
+        extra = ""
+        if "seeds_per_s" in t:
+            extra = (f"; {t['batches']} batches of {t['seeds']:,} seeds, fanout {t['fanout']}: "
+                     f"sampler {t['sample_ms']:.3f} ms (host), ids to the card and feature gather "
+                     f"{t['gather_ms']:.4f} ms, forward {t['batch_forward_ms']:.4f} ms a "
+                     f"batch (medians, CUDA events), {t['seeds_per_s']:,.0f} seeds/s")
+        print(f"[gnn] {t['what']}: {show_case(t)}{extra} | {smi}")
+    for r in gr["recsys"]:
+        print(f"[recsys] {r['arch']}: {r['params']:,} parameters "
+              f"({r['params'] * 4 / 2**30:.2f} GiB float32) drawn on the card in "
+              f"{r['init_s']:.2f} s")
+        for t in r["cases"]:
+            n = t["batch"]
+            cut = "" if n == t["shape_batch"] else f", cut from {t['shape_batch']:,}"
+            unit = "candidates" if t["what"] == "retrieval_cand" else "examples"
+            print(f"[recsys] {r['arch']} {t['what']} ({n:,} {unit}{cut}): "
+                  f"{show_case(t)}; {n / t['ms'] * 1e3:,.0f} {unit}/s | {smi}")
+    print(json.dumps({"gnn_recsys": dict(gr, device=smi)}))
+
+
 # --------------------------------------------------------------- phase 3
 def first_tail_batch(col, dev):
     """The first ``segment_hist`` launch of FREQ-SPLIT's tail on ``col`` at
@@ -1783,6 +2308,10 @@ def run() -> int:
         lm = phase("2i LM serving at full width", lm_path)
         lm_launches = launched(ops.KERNELS, (), "LM serving")
         print_lm(lm, smi)
+        reset(ops.KERNELS)
+        gr = phase("2j GraphSAGE and the recsys rankers at full width", gnn_recsys_path)
+        gr_launches = launched(ops.KERNELS, (), "GNN and recsys")
+        print_gnn_recsys(gr, smi)
         live = {
             "segment_hist": sum(x["segment_hist"] for x in (
                 st["launches"], sv["launches"], sv["drain_launches"])),
@@ -1794,7 +2323,7 @@ def run() -> int:
                  "cooc_run": dr["launches"], "opt-in": oi["launches"],
                  "live store": live, "parallel path 1": pf["launches"],
                  "cooc_run, 4 workers": pd["launches"], "distributed Gram": gm["launches"],
-                 "LM serving": lm_launches}
+                 "LM serving": lm_launches, "GNN and recsys": gr_launches}
         for path, counts in paths.items():
             print(f"[launches] {path}: {json.dumps(counts)}")
 

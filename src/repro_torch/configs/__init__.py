@@ -1,10 +1,11 @@
-"""Architecture registry of the port: one module per LM arch, copies of the
+"""Architecture registry of the port: one module per arch, copies of the
 reference package's config modules. ``get_spec(arch_id)`` returns the
 full-size config; ``spec.smoke()`` returns the reduced same-family config
 for CPU smoke tests.
 
-Only the five LM archs are here: the GNN, recsys and co-occurrence
-(``cooc-wt10g``) configs come with their modules.
+The five LM archs, GraphSAGE-Reddit and the four recsys rankers (DIEN,
+BERT4Rec, xDeepFM, BST) are here; the co-occurrence config
+(``cooc-wt10g``) comes with the dry-run tools that read it.
 """
 
 from __future__ import annotations
@@ -39,6 +40,11 @@ _ARCH_MODULES = {
     "qwen1.5-110b": "repro_torch.configs.qwen1_5_110b",
     "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
     "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
+    "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
+    "dien": "repro_torch.configs.dien",
+    "bert4rec": "repro_torch.configs.bert4rec",
+    "xdeepfm": "repro_torch.configs.xdeepfm",
+    "bst": "repro_torch.configs.bst",
 }
 
 

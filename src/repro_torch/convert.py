@@ -5,7 +5,9 @@ The reference package's ``Collection`` is plain numpy (``doc_ptr``,
 as they are, without importing the reference. Stores need no conversion —
 both packages read and write the same on-disk format (docs/formats.md).
 An LM's parameter tree, as numpy arrays, becomes a ``TransformerLM`` through
-:func:`lm_params_from_numpy`.
+:func:`lm_params_from_numpy`, a GraphSAGE tree a ``GraphSAGE`` through
+:func:`gnn_params_from_numpy`, and a ranker's a ``Ranker`` through
+:func:`recsys_params_from_numpy`.
 """
 
 from __future__ import annotations
@@ -14,10 +16,11 @@ import numpy as np
 import torch
 
 from repro_torch.data.corpus import Collection
+from repro_torch.models import gnn, recsys
+from repro_torch.models.params import ParamTree, check_leaves, flat_leaves
 from repro_torch.models.transformer import (
     LMConfig,
     TransformerLM,
-    flat_leaves,
     param_shapes,
     tree_path,
 )
@@ -66,17 +69,8 @@ def lm_params_from_numpy(tree: dict, cfg: LMConfig, device="cpu") -> Transformer
         tree = jax.tree.map(np.asarray, T.init_params(key, cfg))
         model = lm_params_from_numpy(tree, cfg, "cpu")
     """
-    want = flat_leaves(param_shapes(cfg))
     got = flat_leaves(tree)
-    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
-    if missing or extra:
-        raise ValueError(f"parameter tree mismatch: missing {missing}, extra {extra}")
-    for name, shape in want.items():
-        if tuple(np.shape(got[name])) != tuple(shape):
-            raise ValueError(
-                f"leaf {name!r} has shape {tuple(np.shape(got[name]))}, "
-                f"expected {tuple(shape)}"
-            )
+    check_leaves(flat_leaves(param_shapes(cfg)), got)
     leaves = {path: _tensor(a) for path, a in got.items()}
     model = TransformerLM(cfg, device)
     with torch.no_grad():
@@ -85,3 +79,48 @@ def lm_params_from_numpy(tree: dict, cfg: LMConfig, device="cpu") -> Transformer
             index = [int(part) for part in name.split(".") if part.isdigit()]
             t.copy_(leaf[index[0]] if index else leaf)
     return model
+
+
+def _filled(model_cls, cfg, shapes: dict, tree: dict, device) -> ParamTree:
+    """Check ``tree`` against ``shapes``, then allocate ``model_cls(cfg,
+    device)`` and copy every leaf into the parameter of its path (cast to
+    the parameter's dtype)."""
+    got = flat_leaves(tree)
+    check_leaves(flat_leaves(shapes), got)
+    model = model_cls(cfg, device)
+    with torch.no_grad():
+        for name, t in model.named_parameters():
+            t.copy_(_tensor(got[name]))
+    return model
+
+
+def gnn_params_from_numpy(tree: dict, cfg: gnn.GNNConfig, device="cuda") -> gnn.GraphSAGE:
+    """A :class:`~repro_torch.models.gnn.GraphSAGE` holding the reference's
+    parameter tree (``layer<i>`` with ``w_self``, ``w_neigh``, ``b``;
+    ``head`` with ``w``, ``b``) as numpy arrays, on ``device`` (the card
+    unless the caller says so). A missing, extra or misshaped leaf raises
+    ``ValueError``.
+
+    Example::
+
+        tree = jax.tree.map(np.asarray, G.init_params(key, cfg))
+        model = gnn_params_from_numpy(tree, cfg, "cpu")
+    """
+    return _filled(gnn.GraphSAGE, cfg, gnn.param_shapes(cfg), tree, device)
+
+
+def recsys_params_from_numpy(tree: dict, cfg: recsys.RecsysConfig,
+                             device="cuda") -> recsys.Ranker:
+    """A :class:`~repro_torch.models.recsys.Ranker` holding the reference's
+    parameter tree for ``cfg.kind`` as numpy arrays, on ``device`` (the
+    card unless the caller says so). The tree's lists (``mlp``, ``blocks``,
+    ``cin``) map to ``mlp.<i>.w``, ``blocks.<i>.wq``, ``cin.<i>.w``. A
+    missing, extra or misshaped leaf, or a list of the wrong length,
+    raises ``ValueError``.
+
+    Example::
+
+        tree = jax.tree.map(np.asarray, R.init_params(key, cfg))
+        model = recsys_params_from_numpy(tree, cfg, "cpu")
+    """
+    return _filled(recsys.Ranker, cfg, recsys.param_shapes(cfg), tree, device)

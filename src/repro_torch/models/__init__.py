@@ -1,1 +1,1 @@
-"""LM models of the port: shared layers and the transformer family."""
+"""Models of the port: shared layers, parameter trees, the LM transformer family, GraphSAGE and the recsys rankers."""

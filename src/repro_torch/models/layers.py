@@ -307,3 +307,57 @@ def moe_ffn_ep(
         capacity_factor=capacity_factor, expert_kind=expert_kind,
     )
 
+
+# -------------------------------------- gathers and scatters, JAX's rules
+# The GNN and recsys modules index with caller-given ids. JAX never raises
+# on an out-of-range index, where PyTorch raises on the host and asserts on
+# the card (which ends the CUDA context); these give each call the
+# reference's answer instead. A negative index counts from the end, as in
+# numpy, before the range check.
+def _from_end(idx: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.where(idx < 0, idx + n, idx)
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, idx, axis=0)``: rows out of range are NaN."""
+    n = table.shape[0]
+    i = _from_end(idx, n)
+    ok = ((i >= 0) & (i < n)).reshape(i.shape + (1,) * (table.dim() - 1))
+    return torch.where(ok, table[i.clamp(0, n - 1)], math.nan)
+
+
+def take_along(x: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jnp.take_along_axis(x, idx, dim)``, ``idx`` broadcast over the
+    other axes: entries out of range are NaN."""
+    n = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = idx.shape[dim]
+    i = _from_end(idx, n).expand(shape)
+    ok = (i >= 0) & (i < n)
+    return torch.where(ok, torch.gather(x, dim, i.clamp(0, n - 1).long()), math.nan)
+
+
+def clip_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` as JAX indexes: an index out of range is clamped."""
+    n = x.shape[0]
+    return x[_from_end(idx, n).clamp(0, n - 1)]
+
+
+def segment_sum(data, seg: torch.Tensor, n: int, chunk: int | None = None) -> torch.Tensor:
+    """``jax.ops.segment_sum(data, seg, num_segments=n)``: ``index_add_``
+    into ``n`` rows, a segment id out of ``[0, n)`` dropped. ``data`` is
+    the rows, or a function ``data(lo, hi)`` that makes rows ``lo:hi`` (a
+    gather), called for ``chunk`` rows at a time so that all of them never
+    exist at once; the sum is the same. On the card the float adds land in
+    no fixed order."""
+    rows = data if callable(data) else (lambda lo, hi: data[lo:hi])
+    seg = torch.where((seg >= 0) & (seg < n), seg, n)  # to a spare row, cut off
+    m = seg.shape[0]
+    step = chunk or max(m, 1)
+    out = None
+    for lo in range(0, max(m, 1), step):
+        part = rows(lo, lo + step)
+        if out is None:
+            out = part.new_zeros((n + 1,) + tuple(part.shape[1:]))
+        out.index_add_(0, seg[lo:lo + step], part)
+    return out[:n]

@@ -35,6 +35,7 @@ from repro_torch.models.layers import (
     moe_ffn_ep,
     rms_norm,
 )
+from repro_torch.models.params import flat_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,18 +177,6 @@ def param_shapes(cfg: LMConfig) -> dict:
             "block": {k: (1, *v) for k, v in _layer_shapes(cfg).items()},
         }
     return shapes
-
-
-def flat_leaves(tree: dict, prefix: str = "") -> dict:
-    """A nested dict (a parameter tree or its shapes) as dotted path →
-    leaf, e.g. ``"layers.wq"``."""
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(flat_leaves(v, f"{prefix}{k}."))
-        else:
-            out[f"{prefix}{k}"] = v
-    return out
 
 
 def tree_path(name: str) -> str:

@@ -566,3 +566,57 @@ def test_minicpm3_decode_step_at_full_width_on_the_card_equals_the_host(cuda):
     assert (lc - lh).abs().max().item() < 1e-3
     for name in cc:
         assert (cc[name] - ch[name]).abs().max().item() < 1e-3, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["graphsage-reddit", "dien"])
+def test_gnn_and_ranker_smoke_forward_on_the_card_equals_the_host(cuda, arch):
+    """The smoke GraphSAGE (full-graph forward on a sampler graph, edges
+    scattered by ``index_add_`` in no fixed order on the card) and the
+    smoke DIEN (GRU and AUGRU loops), float32 with TF32 off: the same
+    weights on the card and the host (init plus N(0, 0.05^2) on every leaf,
+    so that biases count and the logits stand at least 100 times above the
+    gate), logits within max abs 1e-4."""
+    from repro_torch.configs import get_spec
+    from repro_torch.data.sampler import random_graph
+    from repro_torch.models import gnn, recsys
+
+    cfg = get_spec(arch).smoke()
+    rng = np.random.default_rng(0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        if arch == "dien":
+            card = recsys.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+            host = recsys.Ranker(cfg, "cpu")
+            items = rng.integers(-1, cfg.n_items, (16, cfg.seq_len))
+            batch = {"hist_items": items, "hist_cats": np.where(items < 0, -1, items % cfg.n_cats),
+                     "target_item": rng.integers(0, cfg.n_items, 16),
+                     "target_cat": rng.integers(0, cfg.n_cats, 16)}
+
+            def run(model, dev):
+                b = {k: torch.from_numpy(v.astype(np.int32)).to(dev) for k, v in batch.items()}
+                return recsys.dien_forward(model, b, cfg)
+        else:
+            card = gnn.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+            host = gnn.GraphSAGE(cfg, "cpu")
+            g = random_graph(300, 4, seed=0)
+            dst = np.repeat(np.arange(300), np.diff(g.indptr))
+            ei = np.stack([g.indices, dst]).astype(np.int32)
+            feats = rng.normal(size=(300, cfg.d_in)).astype(np.float32)
+
+            def run(model, dev):
+                return gnn.forward_full_graph(model, torch.from_numpy(feats).to(dev),
+                                              torch.from_numpy(ei).to(dev), cfg)
+        noise = torch.Generator(device=cuda).manual_seed(1)
+        with torch.no_grad():
+            for p in card.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=noise, device=cuda))
+        host.load_state_dict(card.state_dict())
+        with torch.inference_mode():
+            lc, lh = run(card, cuda).cpu(), run(host, torch.device("cpu"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert torch.isfinite(lc).all()
+    assert lh.abs().max().item() >= 100 * 1e-4
+    assert (lc - lh).abs().max().item() < 1e-4

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro.configs import get_spec as ref_get_spec
+from repro.configs import list_archs as ref_list_archs
 from repro.models import layers as RL
 from repro.models import transformer as RT
 from repro_torch.configs import get_spec, list_archs
@@ -40,6 +41,7 @@ LM_ARCHS = [
     "minicpm3-4b",
     "nemotron-4-340b",
 ]
+GNN_RECSYS_ARCHS = ["graphsage-reddit", "dien", "bert4rec", "xdeepfm", "bst"]
 
 
 def _t(a) -> torch.Tensor:
@@ -71,13 +73,13 @@ def _same_fields(cfg, ref_cfg) -> bool:
                     if n not in ours))
 
 
-def test_registry_has_the_five_lm_archs_only():
-    assert list_archs() == sorted(LM_ARCHS)
+def test_registry_has_the_reference_archs_but_the_cooc_config():
+    assert list_archs() == sorted(set(ref_list_archs()) - {"cooc-wt10g"})
     with pytest.raises(KeyError, match="olmoe-1b-7b"):
-        get_spec("graphsage-reddit")
+        get_spec("cooc-wt10g")
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS + GNN_RECSYS_ARCHS)
 def test_configs_are_copies_of_the_reference(arch):
     mine, ref = get_spec(arch), ref_get_spec(arch)
     assert (mine.arch_id, mine.family, mine.notes) == (ref.arch_id, ref.family, ref.notes)

@@ -7,7 +7,12 @@ both packages read and write the same on-disk format (docs/formats.md).
 An LM's parameter tree, as numpy arrays, becomes a ``TransformerLM`` through
 :func:`lm_params_from_numpy`, a GraphSAGE tree a ``GraphSAGE`` through
 :func:`gnn_params_from_numpy`, and a ranker's a ``Ranker`` through
-:func:`recsys_params_from_numpy`.
+:func:`recsys_params_from_numpy`; :func:`params_to_numpy` goes back, with
+the LM's layers stacked. An optimizer state (``repro_torch.optim``) goes
+to the reference's tree and back through :func:`opt_state_to_numpy` and
+:func:`opt_state_from_numpy`, and :func:`train_state_tree` gives a
+training state as the reference's ``(params, opt_state)`` tree for
+``repro_torch.checkpoint``.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import Stacked
 from repro_torch.data.corpus import Collection
 from repro_torch.models import gnn, recsys
 from repro_torch.models.params import ParamTree, check_leaves, flat_leaves
@@ -54,7 +60,7 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def lm_params_from_numpy(tree: dict, cfg: LMConfig, device="cpu") -> TransformerLM:
+def lm_params_from_numpy(tree: dict, cfg: LMConfig, device="cuda") -> TransformerLM:
     """A :class:`TransformerLM` holding the reference's parameter tree.
 
     ``tree`` is the reference's nested dict (``embed``, ``layers`` with each
@@ -62,7 +68,8 @@ def lm_params_from_numpy(tree: dict, cfg: LMConfig, device="cpu") -> Transformer
     its ``(1, ...)`` block) as numpy arrays. Every leaf's shape is checked
     against ``param_shapes(cfg)``; a missing, extra or misshaped leaf
     raises ``ValueError``. Leaves are cast to ``cfg``'s dtype and the
-    stacked layer leaves unstacked into ``layers.<i>``.
+    stacked layer leaves unstacked into ``layers.<i>``, on ``device`` (the
+    card unless the caller says so).
 
     Example::
 
@@ -124,3 +131,111 @@ def recsys_params_from_numpy(tree: dict, cfg: recsys.RecsysConfig,
         model = recsys_params_from_numpy(tree, cfg, "cpu")
     """
     return _filled(recsys.Ranker, cfg, recsys.param_shapes(cfg), tree, device)
+
+
+# ---------------------------------------------------------- back to the reference
+def _shapes(model) -> dict:
+    """The reference's tree of shapes for ``model``."""
+    if isinstance(model, TransformerLM):
+        return param_shapes(model.cfg)
+    if isinstance(model, gnn.GraphSAGE):
+        return gnn.param_shapes(model.cfg)
+    return recsys.param_shapes(model.cfg)
+
+
+def _nest(flat: dict, shapes, path: str = ""):
+    """The reference's nested tree (dicts and lists as in ``shapes``) of a
+    flat tree keyed by dotted path; a list of per-layer slices becomes a
+    :class:`~repro_torch.checkpoint.Stacked` leaf."""
+    if isinstance(shapes, dict):
+        return {k: _nest(flat, v, f"{path}.{k}" if path else k) for k, v in shapes.items()}
+    if isinstance(shapes, list):
+        return [_nest(flat, v, f"{path}.{i}") for i, v in enumerate(shapes)]
+    v = flat[path]
+    return Stacked(v) if isinstance(v, list) else v
+
+
+def _opt_nest(opt_state: dict, shapes) -> dict:
+    """An optimizer state with each per-parameter tree (``m``, ``v``,
+    ``mu``, ``stats``) nested as the reference's."""
+    return {k: v if k == "count" else _nest(v, shapes) for k, v in opt_state.items()}
+
+
+def train_state_tree(model, opt_state: dict) -> tuple:
+    """``(params, opt_state)`` as the reference's tree of this state's own
+    tensors (no copy; the LM's layer leaves as ``Stacked`` slices): what
+    ``repro_torch.checkpoint`` saves, in the reference's leaf order and
+    names, and the ``tree_like`` it restores into."""
+    shapes = _shapes(model)
+    return _nest(model.param_tree(), shapes), _opt_nest(opt_state, shapes)
+
+
+def _numpy(tree):
+    """A tree of tensors as numpy arrays (``Stacked`` leaves stacked).
+    bfloat16 needs numpy's bfloat16 type, ``ml_dtypes`` (which JAX
+    brings), imported only for such a leaf."""
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, Stacked):
+        return np.stack([_numpy(t) for t in tree])
+    if isinstance(tree, list):
+        return [_numpy(v) for v in tree]
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_numpy(model) -> dict:
+    """The reference's parameter tree of a ``TransformerLM`` (layer leaves
+    stacked ``(L, ...)``, the MTP block's ``(1, ...)``), ``GraphSAGE`` or
+    ``Ranker`` (lists as lists), as numpy arrays: the reverse of
+    :func:`lm_params_from_numpy`, :func:`gnn_params_from_numpy` and
+    :func:`recsys_params_from_numpy`.
+
+    Example::
+
+        tree = params_to_numpy(model)
+        ref_params = jax.tree.map(jnp.asarray, tree)
+    """
+    return _numpy(_nest(model.param_tree(), _shapes(model)))
+
+
+def opt_state_to_numpy(opt_state: dict, model) -> dict:
+    """An optimizer state of ``model``'s parameters (AdamW's ``m``, ``v``,
+    ``count``; SGD's ``mu``, ``count``; Adafactor's ``stats``, ``count``)
+    as the reference's tree of numpy arrays, the moments in their own
+    dtype and the LM's stacked."""
+    return _numpy(_opt_nest(opt_state, _shapes(model)))
+
+
+def opt_state_from_numpy(tree: dict, model) -> dict:
+    """The reference's optimizer state tree (numpy arrays, as
+    :func:`opt_state_to_numpy` gives) as the port's, on ``model``'s
+    device, keyed as ``model.param_tree()``: stacked moments split into
+    the per-layer slices of the port's LM; Adafactor's statistics, which
+    span a stacked leaf, kept whole. A missing, extra or misshaped moment
+    raises ``ValueError``."""
+    shapes = _shapes(model)
+    params = model.param_tree()
+    dev = next(model.parameters()).device
+
+    def at(sub, path: str):
+        for key in path.split("."):
+            sub = sub[int(key)] if isinstance(sub, list) else sub[key]
+        return sub
+
+    out = {"count": _tensor(tree["count"]).to(device=dev, dtype=torch.int32)}
+    for name, sub in tree.items():
+        if name == "stats":
+            out[name] = {path: {k: _tensor(a).to(dev) for k, a in at(sub, path).items()}
+                         for path in params}
+        elif name != "count":
+            check_leaves(flat_leaves(shapes), flat_leaves(sub))
+            out[name] = {}
+            for path, p in params.items():
+                t = _tensor(at(sub, path)).to(dev)
+                out[name][path] = list(t.unbind(0)) if isinstance(p, list) else t
+    return out

@@ -9,8 +9,9 @@ the minibatch mode takes the fixed-fanout blocks of
 :class:`GraphSAGE` holds the parameters under the reference's leaf names
 (``layer0.w_self``, ``layer0.w_neigh``, ``layer0.b``, …, ``head.w``,
 ``head.b``); the forward functions and losses take it, as the LM's take a
-``TransformerLM``. Every function here is a forward computation; gradients
-come with the training slice.
+``TransformerLM``. Gradients come from autograd through these functions
+(``launch/train.py``'s step factories); a caller that only serves runs them
+under ``torch.inference_mode``, so that no graph is built.
 """
 
 from __future__ import annotations

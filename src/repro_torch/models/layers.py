@@ -22,6 +22,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
+
 
 # ----------------------------------------------------------------- norms
 def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -177,9 +179,11 @@ def _normal(generator: torch.Generator, shape, scale: float, dtype, device) -> t
 
 def init_ffn(
     generator: torch.Generator, d_model: int, d_ff: int, kind: str, dtype,
-    device="cpu",
+    device="cuda",
 ) -> dict:
-    """He-initialised FFN weights (``generator`` lives on ``device``)."""
+    """He-initialised FFN weights on ``device`` (the card unless the caller
+    says so), drawn from ``generator``, which lives there."""
+    device = resolve_device(device)
     s_in = (2.0 / d_model) ** 0.5
     s_out = (2.0 / d_ff) ** 0.5
     p = {
@@ -250,19 +254,15 @@ def moe_ffn(
     keep = pos < cap
     bidx = torch.arange(B, device=dev)[:, None].expand(B, S * k)
     tokens = torch.gather(x, 1, st[..., None].expand(B, S * k, d))
-    buf = torch.zeros((B, E, cap, d), dtype=x.dtype, device=dev)
-    buf.index_put_(
-        (
-            bidx,
-            torch.where(keep, se, torch.full_like(se, E - 1)),
-            torch.where(keep, pos, torch.full_like(pos, cap - 1)),
-        ),
-        torch.where(keep[..., None], tokens, torch.zeros_like(tokens)),
-        accumulate=True,
-    )
+    # slot (e, b, c) of the (E, B, cap) buffer is row (e·B + b)·cap + c; a
+    # row-wise index_add_ / index_select (whose gradients are each other)
+    # in place of multi-index puts and gathers, which autograd sorts
+    slot = (torch.where(keep, se, E - 1) * B + bidx) * cap + torch.where(keep, pos, cap - 1)
+    xe = torch.zeros((E * B * cap, d), dtype=x.dtype, device=dev).index_add_(
+        0, slot.reshape(-1), torch.where(keep[..., None], tokens, 0).reshape(-1, d)
+    ).reshape(E, B * cap, d)
 
-    # ---- expert computation: (B, E, C, d) × (E, d, f), one matmul an expert
-    xe = buf.transpose(0, 1).reshape(E, B * cap, d)
+    # ---- expert computation: (E, B·C, d) × (E, d, f), one matmul an expert
     if expert_kind == "swiglu":
         g = torch.bmm(xe, params["w_gate"])
         u = torch.bmm(xe, params["w_in"])
@@ -270,17 +270,18 @@ def moe_ffn(
     else:
         h = torch.bmm(xe, params["w_in"])
         h = torch.square(F.relu(h.float())).to(x.dtype)
-    y_buf = torch.bmm(h, params["w_out"]).reshape(E, B, cap, d).transpose(0, 1)
+    y_buf = torch.bmm(h, params["w_out"]).reshape(E * B * cap, d)
 
     # ---- combine (weighted gather back to tokens; dropped slots add 0)
-    gathered = y_buf[bidx, se, torch.clamp(pos, max=cap - 1)]  # (B, S*k, d)
+    slot = (se * B + bidx) * cap + torch.clamp(pos, max=cap - 1)
+    gathered = torch.index_select(y_buf, 0, slot.reshape(-1)).reshape(B, S * k, d)
     contrib = torch.where(
         keep[..., None], gathered * sg[..., None].to(x.dtype),
         torch.zeros_like(gathered),
     )
-    y = torch.zeros((B, S, d), dtype=torch.float32, device=dev)
-    y.index_put_((bidx, st), contrib.float(), accumulate=True)
-    y = y.to(x.dtype)
+    y = torch.zeros((B * S, d), dtype=torch.float32, device=dev).index_add_(
+        0, (bidx * S + st).reshape(-1), contrib.float().reshape(-1, d))
+    y = y.reshape(B, S, d).to(x.dtype)
 
     if "shared" in params:  # DeepSeek shared expert(s), always-on
         y = y + ffn(params["shared"], x, expert_kind)
@@ -318,12 +319,20 @@ def _from_end(idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(idx < 0, idx + n, idx)
 
 
+def rows_of(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for ids in range, shaped ``idx.shape + row shape``, by
+    ``index_select``: its gradient is an ``index_add_``, where autograd
+    would sort the ids of an advanced-index gather to accumulate them."""
+    return torch.index_select(table, 0, idx.reshape(-1)).reshape(
+        idx.shape + table.shape[1:])
+
+
 def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, idx, axis=0)``: rows out of range are NaN."""
     n = table.shape[0]
     i = _from_end(idx, n)
     ok = ((i >= 0) & (i < n)).reshape(i.shape + (1,) * (table.dim() - 1))
-    return torch.where(ok, table[i.clamp(0, n - 1)], math.nan)
+    return torch.where(ok, rows_of(table, i.clamp(0, n - 1)), math.nan)
 
 
 def take_along(x: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
@@ -338,9 +347,15 @@ def take_along(x: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def clip_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[idx]`` as JAX indexes: an index out of range is clamped."""
+    """``x[idx]`` as JAX indexes: an index out of range reads the clamped
+    row, and sends it no gradient (JAX's backward scatter drops it)."""
     n = x.shape[0]
-    return x[_from_end(idx, n).clamp(0, n - 1)]
+    i = _from_end(idx, n)
+    rows = rows_of(x, i.clamp(0, n - 1))
+    if not rows.requires_grad:
+        return rows
+    ok = ((i >= 0) & (i < n)).reshape(i.shape + (1,) * (x.dim() - 1))
+    return torch.where(ok, rows, rows.detach())
 
 
 def segment_sum(data, seg: torch.Tensor, n: int, chunk: int | None = None) -> torch.Tensor:

@@ -44,7 +44,7 @@ def check_leaves(want: dict, got: dict) -> None:
 
 
 class ParamTree(nn.Module):
-    """The tree of ``shapes`` as uninitialised, frozen parameters of
+    """The tree of ``shapes`` as uninitialised, trainable parameters of
     ``dtype`` on ``device``: a dict becomes a ``ParamTree``, a list an
     ``nn.ModuleList`` of them, a shape tuple a parameter. ``tree[name]``
     is ``getattr(tree, name)``, so the forward functions index it as the
@@ -59,7 +59,13 @@ class ParamTree(nn.Module):
                 self.add_module(name, nn.ModuleList(ParamTree(x, dtype, device) for x in s))
             else:
                 self.register_parameter(name, nn.Parameter(
-                    torch.empty(s, dtype=dtype, device=device), requires_grad=False))
+                    torch.empty(s, dtype=dtype, device=device)))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+    def param_tree(self) -> dict:
+        """Dotted leaf path → parameter: the reference's tree, flat (a
+        list's entries are leaves of their own, ``mlp.0.w``). The optimizers
+        take trees of this form."""
+        return dict(self.named_parameters())

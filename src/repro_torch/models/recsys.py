@@ -12,8 +12,9 @@ names, its lists under their index (``mlp.0.w``, ``blocks.1.wq``,
 Ids out of range give what the reference gives (``models/layers.py``'s
 gathers): ``embedding_lookup`` turns ids < 0 into zero rows and ids past
 the table into NaN rows, ``retrieval_scores`` clamps candidate ids to the
-table. Every function here is a forward computation; gradients come with
-the training slice.
+table. Gradients come from autograd through these functions
+(``launch/train.py``'s ``make_recsys_train_step``); a caller that only serves
+runs them under ``torch.inference_mode``, so that no graph is built.
 """
 
 from __future__ import annotations
@@ -26,7 +27,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import blocked_attention, rms_norm, take_along, take_rows
+from repro_torch.models.layers import (
+    blocked_attention,
+    rms_norm,
+    rows_of,
+    take_along,
+    take_rows,
+)
 from repro_torch.models.params import ParamTree
 
 
@@ -71,7 +78,7 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     n = table.shape[0]
     ok = ((ids >= 0) & (ids < n))[..., None]
     fill = torch.where(ids < 0, 0.0, math.nan)[..., None].to(table.dtype)
-    return torch.where(ok, table[ids.clamp(0, n - 1)], fill)
+    return torch.where(ok, rows_of(table, ids.clamp(0, n - 1)), fill)
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mode: str = "sum") -> torch.Tensor:
@@ -112,16 +119,16 @@ def _gru_gates(p, x: torch.Tensor, h: torch.Tensor):
 
 def gru(p, xs: torch.Tensor) -> torch.Tensor:
     """xs: (B, T, d_in) → states (B, T, d_hidden). A Python loop over T
-    (the reference's ``lax.scan``), each step's state written into the
-    output in place."""
+    (the reference's ``lax.scan``), the states stacked once at the end (a
+    write into the output per step would copy its gradient per step)."""
     B, T, _ = xs.shape
-    hs = xs.new_empty((B, T, p["wh"].shape[0]))
+    hs = []
     h = xs.new_zeros((B, p["wh"].shape[0]))
     for t in range(T):
         z, n = _gru_gates(p, xs[:, t], h)
         h = (1 - z) * n + z * h
-        hs[:, t] = h
-    return hs
+        hs.append(h)
+    return torch.stack(hs, dim=1)
 
 
 def augru(p, xs: torch.Tensor, att: torch.Tensor) -> torch.Tensor:

@@ -14,9 +14,11 @@ the layers are an ``nn.ModuleList`` walked by a Python loop. The KV cache
 keeps the reference's stacked ``(L, B, S, ...)`` leaves, and
 :func:`decode_step` writes each new position into it in place.
 
-Training (``loss_fn``, the MTP head's forward) belongs to a later slice:
-the MTP parameters exist here so that parameter trees match, but nothing
-runs them.
+Training: :func:`loss_fn` is the reference's next-token cross-entropy
+plus the MoE aux loss and, for DeepSeek-V3, the MTP head's loss; its
+gradients come from autograd (the parameters require grad; the serving
+paths run under ``torch.inference_mode``), and ``cfg.remat`` recomputes
+each block in the backward pass as ``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.device import resolve_device
 from repro_torch.models.layers import (
     apply_rope,
     blocked_attention,
@@ -43,8 +47,8 @@ class LMConfig:
     """One LM architecture. The fields are the reference's, less its
     compile and sharding knobs (``unroll_layers``, ``shard_decode_dmodel``,
     ``zero3_gather_weights``, ``moe_combine_dtype``), which come with the
-    sharding slice. ``remat`` stays because the config modules set it; it
-    is a training knob and does nothing when serving.
+    sharding slice. ``remat`` recomputes each block's activations in the
+    backward pass (:func:`forward` under autograd); serving ignores it.
     """
 
     name: str
@@ -187,10 +191,10 @@ def tree_path(name: str) -> str:
 
 
 def _add_params(module: nn.Module, shapes: dict, dtype: torch.dtype, device) -> None:
-    """Register an uninitialised, frozen parameter per name → shape."""
+    """Register an uninitialised, trainable parameter per name → shape."""
     for name, shape in shapes.items():
         module.register_parameter(name, nn.Parameter(
-            torch.empty(shape, dtype=dtype, device=device), requires_grad=False
+            torch.empty(shape, dtype=dtype, device=device)
         ))
 
 
@@ -209,7 +213,7 @@ class Block(nn.Module):
 
 class MTPHead(nn.Module):
     """DeepSeek-V3's multi-token-prediction parameters (``proj``, ``ln_h``,
-    ``ln_e`` and one block). Held, not run, until the training slice."""
+    ``ln_e`` and one block), run by :func:`loss_fn`."""
 
     def __init__(self, cfg: LMConfig, device):
         super().__init__()
@@ -221,12 +225,14 @@ class MTPHead(nn.Module):
 
 class TransformerLM(nn.Module):
     """The parameters of one LM, allocated uninitialised in ``cfg``'s dtype
-    on ``device``; :func:`init_params` or
-    ``repro_torch.convert.lm_params_from_numpy`` fills them. Calling the
+    on ``device`` (the card unless the caller says so;
+    ``repro_torch.device.DeviceError`` without one); :func:`init_params`
+    or ``repro_torch.convert.lm_params_from_numpy`` fills them. Calling the
     module runs :func:`forward`."""
 
-    def __init__(self, cfg: LMConfig, device="cpu"):
+    def __init__(self, cfg: LMConfig, device="cuda"):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         d, V, dt = cfg.d_model, cfg.vocab_size, cfg.torch_dtype
         _add_params(self, {"embed": (V, d)}, dt, device)
@@ -236,6 +242,20 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor):
         return forward(self, tokens, self.cfg)
+
+    def param_tree(self) -> dict:
+        """The reference's parameter tree, flat: its dotted leaf path →
+        the parameter, or for a leaf stacked over layers (``layers.wq``,
+        ``mtp.block.wq``) the list of this model's per-layer slices, in
+        layer order. The optimizers take trees of this form."""
+        tree: dict = {}
+        for name, t in self.named_parameters():
+            path = tree_path(name)
+            if path == name:
+                tree[path] = t
+            else:
+                tree.setdefault(path, []).append(t)
+        return tree
 
 
 def _init_leaf(t: torch.Tensor, name: str, fan_in: int, generator: torch.Generator):
@@ -250,13 +270,14 @@ def _init_leaf(t: torch.Tensor, name: str, fan_in: int, generator: torch.Generat
         t.copy_(torch.randn(t.shape, generator=generator, device=t.device) * scale)
 
 
-def init_params(cfg: LMConfig, generator: torch.Generator, device="cpu") -> TransformerLM:
+def init_params(cfg: LMConfig, generator: torch.Generator, device="cuda") -> TransformerLM:
     """A :class:`TransformerLM` with random weights drawn from ``generator``
     (which must live on ``device``), one leaf at a time so that no stacked
     float32 temporary is made. ``fan_in`` is the reference's
     ``shape[-2]`` of the stacked leaf. The random streams are torch's, not
     JAX's: weights equal to the reference's come through
-    ``repro_torch.convert.lm_params_from_numpy``."""
+    ``repro_torch.convert.lm_params_from_numpy``. ``device`` is the card
+    unless the caller says so."""
     model = TransformerLM(cfg, device)
     stacked = flat_leaves(param_shapes(cfg))
     with torch.no_grad():
@@ -443,16 +464,60 @@ def _embed(params: TransformerLM, tokens: torch.Tensor, cfg: LMConfig) -> torch.
 
 
 def forward(params: TransformerLM, tokens: torch.Tensor, cfg: LMConfig):
-    """tokens: (B, S) int → (logits f32 (B, S, V), h_pre_norm, aux_loss)."""
+    """tokens: (B, S) int → (logits f32 (B, S, V), h_pre_norm, aux_loss).
+    Under autograd with ``cfg.remat``, each block keeps only its input
+    and is recomputed in the backward pass (``jax.checkpoint(body)``)."""
     S = tokens.shape[1]
     h = _embed(params, tokens, cfg)
     positions = torch.arange(S, device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for layer in params.layers:
-        h, a = block(layer.tensors(), h, cfg, positions)
+        if remat:
+            h, a = checkpoint(block, layer.tensors(), h, cfg, positions,
+                              use_reentrant=False)
+        else:
+            h, a = block(layer.tensors(), h, cfg, positions)
         aux = aux + a
     hn = rms_norm(params.final_ln, h)
     return _logits(hn, params.out_head), h, aux
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token cross-entropy in float32. The reference picks the label's
+    logit with a one-hot contraction (so that vocab-sharded logits are
+    never gathered); for finite logits that equals this gather of it, and
+    so does its gradient, without a (B, S, V) one-hot. Labels must lie in
+    the vocabulary, as the embedding lookup already requires."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return lse - picked
+
+
+def loss_fn(params: TransformerLM, batch: dict, cfg: LMConfig):
+    """Next-token loss of ``batch["tokens"]`` (B, S): the mean
+    cross-entropy plus ``aux_loss_weight`` times the MoE aux loss and, with
+    ``cfg.mtp``, ``mtp_weight`` times the MTP head's cross-entropy on token
+    t+2 from h_t and embed(token t+1) (DeepSeek-V3). Returns ``(loss,
+    {"ce", "aux"[, "mtp_ce"]})``, all float32 0-dim tensors."""
+    tokens = batch["tokens"]
+    logits, h, aux = forward(params, tokens, cfg)
+    ce = _ce(logits[:, :-1], tokens[:, 1:]).mean()
+    loss = ce + cfg.aux_loss_weight * aux
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp:
+        mtp = params.mtp
+        h_in = rms_norm(mtp.ln_h, h[:, :-1])
+        e_in = rms_norm(mtp.ln_e, _embed(params, tokens[:, 1:], cfg))
+        x = torch.cat([h_in, e_in], dim=-1) @ mtp.proj
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, _ = block(mtp.block[0].tensors(), x, cfg, positions)
+        mtp_logits = _logits(rms_norm(params.final_ln, x), params.out_head)
+        mtp_ce = _ce(mtp_logits[:, :-1], tokens[:, 2:]).mean()
+        loss = loss + cfg.mtp_weight * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    return loss, metrics
 
 
 # --------------------------------------------------------------------------
@@ -471,8 +536,10 @@ def cache_shapes(cfg: LMConfig, batch: int, max_seq: int) -> dict:
     }
 
 
-def init_cache(cfg: LMConfig, batch: int, max_seq: int, device="cpu") -> dict:
-    """A zeroed cache in the config's dtype."""
+def init_cache(cfg: LMConfig, batch: int, max_seq: int, device="cuda") -> dict:
+    """A zeroed cache in the config's dtype, on ``device`` (the card unless
+    the caller says so)."""
+    device = resolve_device(device)
     return {
         k: torch.zeros(s, dtype=cfg.torch_dtype, device=device)
         for k, s in cache_shapes(cfg, batch, max_seq).items()

@@ -13,6 +13,7 @@ scores computed with the same accurate ``logf`` and IEEE division on both
 sides.
 """
 
+import dataclasses
 import glob
 import os
 import time
@@ -620,3 +621,95 @@ def test_gnn_and_ranker_smoke_forward_on_the_card_equals_the_host(cuda, arch):
     assert torch.isfinite(lc).all()
     assert lh.abs().max().item() >= 100 * 1e-4
     assert (lc - lh).abs().max().item() < 1e-4
+
+
+def _train_state_leaves(state):
+    from repro_torch.checkpoint import flatten
+    from repro_torch.convert import train_state_tree
+
+    out = []
+    for name, leaf in flatten(train_state_tree(*state)):
+        out += [(f"{name}[{i}]", t) for i, t in enumerate(leaf)] if isinstance(leaf, list) \
+            else [(name, leaf)]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "dien"])
+def test_one_train_step_on_the_card_equals_the_host(cuda, arch):
+    """One step of ``make_lm_train_step`` on the smoke DeepSeek-V3 (MLA,
+    MoE with a shared expert, the MTP head) with ``pick_optimizer``'s
+    AdamW, or of ``make_recsys_train_step`` on the smoke DIEN with SGD
+    (whose first momentum is the gradient itself), float32 with TF32 off,
+    from the same weights on the card and the host: the metrics, every
+    parameter and every optimizer-state leaf within max abs 1e-4 (DIEN's
+    weights at init plus N(0, 0.05^2), so that its gradients reach 100
+    times the gate). AdamW's first step moves DeepSeek's parameters by its
+    learning rate, 1.5e-7, so its clipped gradients are held too: each leaf
+    within 1e-3 of that leaf's largest host entry, the largest reaching 100
+    times the 1e-4 gate."""
+    from repro_torch.configs import get_spec
+    from repro_torch.launch import train as TR
+    from repro_torch.models import recsys
+    from repro_torch.models import transformer as LM
+    from repro_torch.optim import sgd
+
+    cfg = get_spec(arch).smoke()
+    rng = np.random.default_rng(0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        if arch == "dien":
+            card = recsys.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+            with torch.no_grad():
+                noise = torch.Generator(device=cuda).manual_seed(1)
+                for p in card.parameters():
+                    p.add_(0.05 * torch.randn(p.shape, generator=noise, device=cuda))
+            host = recsys.Ranker(cfg, "cpu")
+            items = rng.integers(-1, cfg.n_items, (16, cfg.seq_len))
+            batch = {"hist_items": items, "hist_cats": np.where(items < 0, -1, items % cfg.n_cats),
+                     "target_item": rng.integers(0, cfg.n_items, 16),
+                     "target_cat": rng.integers(0, cfg.n_cats, 16),
+                     "label": rng.integers(0, 2, 16)}
+
+            def make():
+                return sgd(0.1), TR.make_recsys_train_step
+        else:
+            card = LM.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+            host = LM.TransformerLM(cfg, "cpu")
+            batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 24))}
+
+            def make():
+                return TR.pick_optimizer(cfg.num_params())[0], TR.make_lm_train_step
+        host.load_state_dict(card.state_dict())
+        out = []
+        for model, dev in ((card, cuda), (host, torch.device("cpu"))):
+            opt, factory = make()
+            grads = {}
+
+            def update(g, st, p, opt=opt, grads=grads):
+                grads.update({k: torch.stack(v) if isinstance(v, list) else v.clone()
+                              for k, v in g.items()})
+                return opt.update(g, st, p)
+
+            opt = dataclasses.replace(opt, update=update)
+            b = {k: torch.from_numpy(v.astype(np.int32)).to(dev) for k, v in batch.items()}
+            state, metrics = factory(cfg, opt)((model, opt.init(model.param_tree())), b)
+            out.append((_train_state_leaves(state), {k: float(v) for k, v in metrics.items()},
+                        grads))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (lc, mc, gc), (lh, mh, gh) = out
+    assert set(mc) == set(mh) and all(np.isfinite(v) for v in mc.values())
+    assert max(abs(mc[k] - mh[k]) for k in mh) < 1e-4, (mc, mh)
+    assert [n for n, _ in lc] == [n for n, _ in lh]
+    for (name, a), (_, b) in zip(lc, lh):
+        assert (a.detach().cpu().double() - b.detach().double()).abs().max().item() < 1e-4, name
+    if arch == "dien":
+        assert max(b.abs().max().item() for n, b in lh if n.startswith("1/mu/")) >= 100 * 1e-4
+    else:
+        assert list(gc) == list(gh)
+        for name, g in gh.items():
+            err = (gc[name].cpu().double() - g.double()).abs().max().item()
+            assert err <= 1e-3 * g.abs().max().item(), (name, err)
+        assert max(g.abs().max().item() for g in gh.values()) >= 100 * 1e-4

@@ -160,7 +160,7 @@ def test_ffn(kind):
 
 @pytest.mark.parametrize("kind", ["swiglu", "gelu"])
 def test_init_ffn_shapes_and_scales(kind):
-    p = L.init_ffn(torch.Generator().manual_seed(0), 256, 512, kind, torch.bfloat16)
+    p = L.init_ffn(torch.Generator().manual_seed(0), 256, 512, kind, torch.bfloat16, "cpu")
     ref = RL.init_ffn(jax.random.PRNGKey(0), 256, 512, kind, jnp.bfloat16)
     assert {n: (tuple(t.shape), t.dtype) for n, t in p.items()} == {
         n: (a.shape, torch.bfloat16) for n, a in ref.items()}
@@ -215,7 +215,7 @@ def _setup(arch, **overrides):
         ref_cfg = dataclasses.replace(ref_get_spec(arch).smoke(), **overrides)
         cfg = dataclasses.replace(get_spec(arch).smoke(), **overrides)
         ref_params = ref_init_params(jax.random.PRNGKey(0), ref_cfg)
-        model = lm_params_from_numpy(jax.tree.map(np.asarray, ref_params), cfg)
+        model = lm_params_from_numpy(jax.tree.map(np.asarray, ref_params), cfg, "cpu")
         tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
         _SETUPS[key] = ref_cfg, cfg, ref_params, model, tokens
     return _SETUPS[key]
@@ -256,7 +256,7 @@ def test_prefill_then_six_decode_steps(arch):
         lambda f, p: jax.lax.dynamic_update_slice(f, p.astype(f.dtype), (0,) * f.ndim),
         RT.init_cache(ref_cfg, 2, P + n_dec), cache_ref,
     )
-    full = T.init_cache(cfg, 2, P + n_dec)
+    full = T.init_cache(cfg, 2, P + n_dec, "cpu")
     for name, t in full.items():
         assert tuple(t.shape) == full_ref[name].shape and t.dtype == cfg.torch_dtype
         t[:, :, :P] = cache[name]
@@ -321,7 +321,7 @@ def test_bfloat16_prefill_and_decode(arch):
                                      jnp.int32(P), ref_cfg)
     with torch.no_grad():
         last, cache = T.prefill(model, _t(tokens[:, :P]), cfg)
-        full = T.init_cache(cfg, 2, P + 1)
+        full = T.init_cache(cfg, 2, P + 1, "cpu")
         for name, t in full.items():
             t[:, :, :P] = cache[name]
         step, _ = T.decode_step(model, full, _t(tokens[:, P:]), P, cfg)
@@ -357,13 +357,13 @@ def test_converter_raises_on_a_bad_tree(fault):
         tree["layers"]["wq"] = tree["layers"]["wq"][:, :, :-1]
     with pytest.raises(ValueError, match="router" if fault == "missing" else
                        "bq" if fault == "extra" else "wq"):
-        lm_params_from_numpy(tree, cfg)
+        lm_params_from_numpy(tree, cfg, "cpu")
 
 
 def test_init_params_follows_the_reference_rule():
     cfg = get_spec("qwen1.5-110b").smoke()
     g = torch.Generator().manual_seed(0)
-    model = T.init_params(cfg, g)
+    model = T.init_params(cfg, g, "cpu")
     p = dict(model.named_parameters())
     assert torch.equal(p["layers.0.ln1"], torch.ones(cfg.d_model))
     assert torch.equal(p["layers.1.bq"], torch.zeros(cfg.n_heads * cfg.d_head))
@@ -371,5 +371,5 @@ def test_init_params_follows_the_reference_rule():
     for name, fan_in in (("layers.0.wq", cfg.d_model), ("embed", cfg.vocab_size),
                          ("out_head", cfg.d_model)):
         assert abs(p[name].std().item() * fan_in ** 0.5 - 1.0) < 0.1
-    again = T.init_params(cfg, torch.Generator().manual_seed(0))
+    again = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     assert all(torch.equal(a, b) for a, b in zip(model.parameters(), again.parameters()))

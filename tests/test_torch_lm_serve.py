@@ -43,7 +43,7 @@ def test_serve_generates_the_reference_tokens(arch):
     tree = jax.tree.map(np.asarray, RT.init_params(jax.random.PRNGKey(seed), ref_cfg))
     out, stats = serve_mod.serve(
         arch, batch, prompt_len, gen, seed=seed, device="cpu",
-        params=lm_params_from_numpy(tree, cfg),
+        params=lm_params_from_numpy(tree, cfg, "cpu"),
     )
     assert out.dtype == np.int32 and out.shape == (batch, gen)
     np.testing.assert_array_equal(out, ref_out)

@@ -152,6 +152,11 @@ def test_port_imports_neither_jax_nor_the_reference():
     # the modules of the multi-device slice: importing them starts no world
     assert {"repro_torch.core.distributed", "repro_torch.runtime.elastic",
             "repro_torch.launch.mesh"} <= set(names)
+    # the training slice's: optimizers, step factories, the train entry point
+    assert {"repro_torch.optim", "repro_torch.optim.optimizers", "repro_torch.optim.schedule",
+            "repro_torch.optim.clip", "repro_torch.optim.compress",
+            "repro_torch.launch.train", "repro_torch.launch.train_lm",
+            "repro_torch.checkpoint.checkpoint"} <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}:\n"

@@ -130,6 +130,25 @@ without a card, without the repository beside it, or if any phase fails:
            finite and of the reference's shapes. No kernel of the four
            runs (the reference's GNN and recsys modules reach no
            ``pl.pallas_call``): the launch counts print 0.
+   l. The sharding slice, after phase 4 and before k:
+      i.   the dry run (``python -m repro_torch.launch.dryrun``, the single
+           16 x 16 mesh of a fake world, on the host with no card visible)
+           of ``cooc-wt10g`` head_gram and tail_hist and ``olmoe-1b-7b``
+           train_4k, a process each, beside the card's work: each record
+           must be ok; its per-rank compute, fused-memory and collective
+           terms, bottleneck and ``fits_80gb`` print on ``[dryrun]`` lines;
+      ii.  one rank's share of each co-occurrence cell on the card:
+           ``segment_hist`` of 524,288 postings (8,388,608 over 16 data
+           ranks) into 256 x 65,536, and the 16 ``cooc_gram`` products of
+           the rank's (32,768, 4,096) uint8 block with each column block of
+           its ring, held with ``torch.equal`` against the plain versions
+           (one product) and timed by CUDA events beside their bounds;
+      iii. ``moe_ffn_ep``: OLMoE-1B-7B's MoE layer at full width (d 2,048,
+           64 experts of 1,024, top-8), float32, on 8 x 1,024 tokens, on a
+           (2, 2) ("data", "model") gloo world of 4 ranks sharing the card,
+           against the same world on the host within 1e-4 of the output's
+           largest entry, and at capacity factor 64 / 8 (no drops) against
+           ``moe_ffn`` on the card.
    k. Training, each model freed before the next; run last, after phase
       4, in the order i, iii, iv, ii (a profiled LM step launches up to
       ~10^5 kernels, after which the profiler drops device events of
@@ -304,6 +323,16 @@ BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 # kept for the backward pass (three of 20 GB at 65,536)
 RANKER_TRAIN_BATCH = {"dien": 65_536, "bert4rec": 2_048, "xdeepfm": 16_384, "bst": 65_536}
 TRAIN_LM_STEPS, TRAIN_LM_RESUME = 200, 250  # 2k-iv: train_lm --steps, then --resume to
+# the sharding slice (2l): dry-run cells, the co-occurrence cells' per-rank
+# shares on the 16 x 16 mesh, and the expert-parallel MoE
+DRYRUN_CELLS = (("cooc-wt10g", "head_gram"), ("cooc-wt10g", "tail_hist"),
+                ("olmoe-1b-7b", "train_4k"))
+DRYRUN_TIMEOUT_S = 240
+COOC_DP = COOC_MODEL = 16
+GRAM_DENSITY = 0.05  # of the head's incidence, for the head_gram share
+EP_MESH, EP_TOKENS = (2, 2), (8, 1_024)
+EP_TOL = 1e-4  # of the output's largest entry
+EP_TIMEOUT_S = 300
 
 
 class SmokeFailure(Exception):
@@ -1791,6 +1820,224 @@ def print_gnn_recsys(gr: dict, smi: str) -> None:
     print(json.dumps({"gnn_recsys": dict(gr, device=smi)}))
 
 
+# --------------------------------------------------------------- phase 2l
+def start_dryrun() -> list:
+    """2l-i: ``python -m repro_torch.launch.dryrun`` on the single mesh, a
+    process a cell, started on the host (no card visible to them) to run
+    beside the card's work."""
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        out = os.path.join(WORK, f"dryrun_{shape}.jsonl")
+        procs.append((arch, shape, out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape, "--mesh", "single", "--out", out],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def finish_dryrun(procs) -> list[dict]:
+    """Each dry-run process's record; every cell must be ok."""
+    recs = []
+    for arch, shape, out, p in procs:
+        _, err = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+        check(p.returncode == 0, f"2l dry run of {arch}/{shape} failed: {err[-1500:]}")
+        with open(out) as f:
+            rec = json.loads(f.read().splitlines()[-1])
+        check(rec.get("ok") is True, f"2l dry run of {arch}/{shape}: {rec.get('error')}")
+        recs.append(rec)
+    return recs
+
+
+def cooc_shares(kernels) -> dict:
+    """2l-ii: one rank's share of each co-occurrence cell on the card,
+    each held with ``torch.equal`` against its plain version and timed by
+    CUDA events beside its own bound."""
+    import torch
+    from repro_torch.configs import get_spec
+    from repro_torch.kernels import ops, ref
+
+    shapes = get_spec("cooc-wt10g").shapes
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    # tail_hist: this rank's postings, rows sorted as LIST-SCAN emits them
+    hs = shapes["tail_hist"].sizes
+    L, rows, V = hs["postings_chunk"] // COOC_DP, hs["rows"], hs["vocab_tile"]
+    seg = torch.sort(torch.randint(0, rows, (L,), generator=g, device="cuda",
+                                   dtype=torch.int32)).values
+    ids = torch.randint(0, V, (L,), generator=g, device="cuda", dtype=torch.int32)
+    # head_gram: this rank's (doc_chunk / dp, head / model) block and the
+    # column block of every rank of its ring
+    gs = shapes["head_gram"].sizes
+    D, M = gs["doc_chunk"] // COOC_DP, gs["head"] // COOC_MODEL
+    blocks = [(torch.rand((D, M), generator=g, device="cuda") < GRAM_DENSITY).to(torch.uint8)
+              for _ in range(COOC_MODEL)]
+    mine = blocks[0]
+
+    def hist():
+        return ops.segment_hist(ids, seg, num_rows=rows, vocab=V)
+
+    def gram():
+        return [ops.cooc_gram(mine, b) for b in blocks]
+
+    reset(kernels)
+    h, products = hist(), gram()
+    torch.cuda.synchronize()
+    launches = launched(kernels, ("segment_hist", "cooc_gram"), "2l cooc cells")
+    check(torch.equal(h, ref.segment_hist_ref(ids, seg, rows, V)),
+          "2l: segment_hist differs from its plain version on the tail_hist share")
+    check(int(h.sum()) == L, "2l: the tail_hist share lost postings")
+    check(torch.equal(products[1], ref.cooc_gram_ref(mine, blocks[1])),
+          "2l: cooc_gram differs from its plain version on the head_gram share")
+    del products
+    out = {"launches": launches, "L": L, "grid": (rows, V), "gram": (D, M, M, COOC_MODEL)}
+    out["hist_ms"] = cuda_ms(hist, 10)
+    out["hist_plain_ms"] = cuda_ms(lambda: ref.segment_hist_ref(ids, seg, rows, V), 3)
+    out["gram_ms"] = cuda_ms(gram, 3)
+    # bounds: postings read and the grid written; the 16 products' int8
+    # operations (the bytes, 16 blocks in and 16 int32 strips out, weigh less)
+    out["hist_bound_ms"] = (2 * L * 4 + rows * V * 4) / HBM_BYTES_PER_S * 1e3
+    out["gram_bound_ms"] = max(2.0 * D * M * M * COOC_MODEL / INT8_OPS_PER_S,
+                               COOC_MODEL * (D * M + M * M * 4) / HBM_BYTES_PER_S) * 1e3
+    return out
+
+
+def moe_layer():
+    """OLMoE-1B-7B's MoE layer at full width, float32, random (He) weights
+    and tokens drawn on the card from the seed: (params, x) on the card."""
+    import torch
+    from repro_torch.configs import get_spec
+
+    cfg = get_spec("olmoe-1b-7b").model
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.expert_d_ff
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def normal(shape, fan_in):
+        return torch.randn(shape, generator=g, device="cuda") * (2.0 / fan_in) ** 0.5
+
+    p = {"router": normal((d, E), d), "w_in": normal((E, d, f), d),
+         "w_gate": normal((E, d, f), d), "w_out": normal((E, f, d), f)}
+    return cfg, p, torch.randn(EP_TOKENS + (d,), generator=g, device="cuda")
+
+
+def start_host_ep(cfg, pn: dict, xn) -> tuple:
+    """2l-iii's host world, in a thread: it runs while the card works.
+    ``run`` put ``src`` on ``PYTHONPATH`` for good, so this thread's spawns
+    and the main thread's do not race on the environment
+    ``spawn_friendly_env`` patches."""
+    import threading
+
+    from repro_torch.launch.moe_ep import moe_ep_on_world
+
+    host = {}
+
+    def on_host():
+        try:
+            host.update(moe_ep_on_world(pn, xn, EP_MESH, top_k=cfg.top_k, grads=False,
+                                        capacity_factor=cfg.capacity_factor, device="cpu"))
+        except Exception as e:  # reported by the check in moe_ep_card_vs_host
+            host["error"] = f"{type(e).__name__}: {e}"
+
+    th = threading.Thread(target=on_host)
+    th.start()
+    return th, host
+
+
+def moe_ep_card_vs_host(cfg, p, x, pn, xn, th, host) -> dict:
+    """2l-iii: the MoE layer expert-parallel on a (2, 2) gloo world whose
+    ranks share the card (at the config's capacity factor, then without
+    drops), against the same world on the host, and without drops against
+    ``moe_ffn`` on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.moe_ep import moe_ep_on_world
+    from repro_torch.models.layers import moe_ffn
+
+    E, k = cfg.n_experts, cfg.top_k
+    no_drop = E / k  # every token fits even if all choose one expert
+    card, card_nd = moe_ep_on_world(pn, xn, EP_MESH, top_k=k, grads=False,
+                                    capacity_factor=(cfg.capacity_factor, no_drop))
+    with torch.inference_mode():
+        want, _ = moe_ffn(p, x, n_experts=E, top_k=k, capacity_factor=no_drop)
+    want = want.cpu().numpy()
+    th.join(timeout=EP_TIMEOUT_S)
+    check(not th.is_alive() and "y" in host,
+          f"2l: the host's expert-parallel world failed: {host.get('error', 'timed out')}")
+    scale = float(np.abs(host["y"]).max())
+    err = float(np.abs(card["y"] - host["y"]).max())
+    err_nd = float(np.abs(card_nd["y"] - want).max())
+    scale_nd = float(np.abs(want).max())
+    check(bool(np.isfinite(card["y"]).all()), "2l: expert-parallel output not finite")
+    check(err <= EP_TOL * scale, f"2l: expert-parallel card vs host {err:.3e} > "
+          f"{EP_TOL} x {scale:.3e}")
+    check(err_nd <= EP_TOL * scale_nd, f"2l: expert-parallel without drops vs moe_ffn "
+          f"{err_nd:.3e} > {EP_TOL} x {scale_nd:.3e}")
+    return {"err": err, "scale": scale, "err_nd": err_nd, "scale_nd": scale_nd,
+            "no_drop_cf": no_drop, "card_rank_s": card["wall_s"],
+            "card_nd_rank_s": card_nd["wall_s"], "host_rank_s": host["wall_s"]}
+
+
+def sharding_path(kernels) -> dict:
+    """Phase 2l: the dry run on the card's host (three processes) and the
+    expert-parallel host world (a thread) run while the card takes one
+    rank's share of each co-occurrence cell and runs its own
+    expert-parallel world."""
+    procs = start_dryrun()
+    try:
+        cfg, p, x = moe_layer()
+        pn = {n: t.cpu().numpy() for n, t in p.items()}
+        xn = x.cpu().numpy()
+        th, host = start_host_ep(cfg, pn, xn)
+        shares = cooc_shares(kernels)
+        ep = moe_ep_card_vs_host(cfg, p, x, pn, xn, th, host)
+        recs = finish_dryrun(procs)
+        shares["dryrun"] = {r["shape"]: r["roofline"] for r in recs}
+        # the dry run's per-rank Gram is the share the card just ran: the
+        # same int8 operations at the same peak
+        D, M, _, n = shares["gram"]
+        want = 2.0 * D * M * M * n / INT8_OPS_PER_S
+        got = shares["dryrun"]["head_gram"]["t_compute_s"]
+        check(abs(got - want) <= 1e-9 * want,
+              f"2l: the dry run's head_gram t_compute {got:.6g} s is not its share's "
+              f"{want:.6g} s (int8 operations over {INT8_OPS_PER_S:g}/s)")
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {"dryrun": recs, "shares": shares, "ep": ep}
+
+
+def print_sharding(sp: dict, smi: str) -> None:
+    for r in sp["dryrun"]:
+        rl = r["roofline"]
+        print(f"[dryrun] {r['arch']}/{r['shape']} mesh={r['mesh']} per rank: t_compute "
+              f"{rl['t_compute_s']:.6g} s, t_memory_fused {rl['t_memory_fused_s']:.6g} s, "
+              f"t_collective {rl['t_collective_s']:.6g} s, bottleneck {rl['bottleneck']}, "
+              f"fits_80gb {r['analytic']['fits_80gb']} (build {r['lower_s']} s, trace "
+              f"{r['compile_s']} s on the host)")
+    sh = sp["shares"]
+    dr = sh["dryrun"]
+    print(f"[sharding] tail_hist share: segment_hist of {sh['L']} postings into "
+          f"{sh['grid']} {sh['hist_ms']:.4f} ms (plain {sh['hist_plain_ms']:.4f} ms, bound "
+          f"{sh['hist_bound_ms']:.4f} ms by bytes); the dry run's per-rank t_memory "
+          f"{dr['tail_hist']['t_memory_s'] * 1e3:.4f} ms, t_collective "
+          f"{dr['tail_hist']['t_collective_s'] * 1e3:.4f} ms | {smi}")
+    D, M, N, n = sh["gram"]
+    print(f"[sharding] head_gram share: {n} cooc_gram products of ({D}, {M}) x ({D}, {N}) "
+          f"uint8 {sh['gram_ms']:.4f} ms (bound {sh['gram_bound_ms']:.4f} ms by int8 "
+          f"operations); the dry run's per-rank t_compute "
+          f"{dr['head_gram']['t_compute_s'] * 1e3:.4f} ms at the int8 peak, t_collective "
+          f"{dr['head_gram']['t_collective_s'] * 1e3:.4f} ms | {smi}")
+    ep = sp["ep"]
+    print(f"[sharding] moe_ffn_ep OLMoE-1B-7B layer on {EP_MESH} ranks sharing the card, "
+          f"{EP_TOKENS[0]} x {EP_TOKENS[1]} tokens, float32: card vs host max abs "
+          f"{ep['err']:.3e} (output max {ep['scale']:.3e}); capacity factor "
+          f"{ep['no_drop_cf']:g} (no drops) vs moe_ffn {ep['err_nd']:.3e}; a card rank's "
+          f"call {max(ep['card_rank_s']):.3f} s ({max(ep['card_nd_rank_s']):.3f} s without "
+          f"drops), a host rank's {max(ep['host_rank_s']):.3f} s | {smi}")
+    print(f"[launches] cooc cells (one rank's share): {json.dumps(sh['launches'])}")
+
+
 # --------------------------------------------------------------- phase 2k
 def tree_leaves(tree) -> list:
     """``(name, tensor)`` of every leaf of a checkpoint tree, in the
@@ -3025,6 +3272,11 @@ def run() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    # spawned workers import repro_torch from SRC: on PYTHONPATH for the
+    # whole run, so that spawns from two threads (2l) find it whatever
+    # order their environment patches restore in
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [SRC] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
 
     from repro_torch.data.corpus import synthetic_zipf_collection
     from repro_torch.data.preprocess import remap_df_descending
@@ -3147,6 +3399,10 @@ def run() -> int:
         # events of later ones (on the H100, after 150,000 kernels it lost
         # one kernel in ten of the next sessions), which phases 3 and 4
         # read
+        sp = phase("2l sharding: dry run, co-occurrence shares, expert-parallel MoE",
+                   sharding_path, ops.KERNELS)
+        paths["cooc cells"] = sp["shares"]["launches"]
+        print_sharding(sp, smi)
         reset(ops.KERNELS)
         tr = phase("2k training at full width", train_path)
         paths["training"] = launched(ops.KERNELS, (), "training")

@@ -3,9 +3,9 @@ reference package's config modules. ``get_spec(arch_id)`` returns the
 full-size config; ``spec.smoke()`` returns the reduced same-family config
 for CPU smoke tests.
 
-The five LM archs, GraphSAGE-Reddit and the four recsys rankers (DIEN,
-BERT4Rec, xDeepFM, BST) are here; the co-occurrence config
-(``cooc-wt10g``) comes with the dry-run tools that read it.
+The five LM archs, GraphSAGE-Reddit, the four recsys rankers (DIEN,
+BERT4Rec, xDeepFM, BST) and the paper's own co-occurrence workload
+(``cooc-wt10g``, which the dry run reads).
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ _ARCH_MODULES = {
     "bert4rec": "repro_torch.configs.bert4rec",
     "xdeepfm": "repro_torch.configs.xdeepfm",
     "bst": "repro_torch.configs.bst",
+    "cooc-wt10g": "repro_torch.configs.cooc_wt10g",
 }
 
 

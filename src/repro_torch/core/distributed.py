@@ -77,7 +77,10 @@ def mesh_layout(mesh, model_axis: str = "model") -> np.ndarray:
     names = tuple(mesh.mesh_dim_names)
     if model_axis not in names:
         raise ValueError(f"mesh axes {names} have no {model_axis!r} axis")
-    grid = np.moveaxis(mesh.mesh.cpu().numpy(), names.index(model_axis), -1)
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily():  # the dry run traces under FakeTensorMode
+        grid = np.moveaxis(mesh.mesh.cpu().numpy(), names.index(model_axis), -1)
     return grid.reshape(-1, grid.shape[-1])
 
 

@@ -37,9 +37,10 @@ def segment_hist_ref(
     if out is None:
         out = torch.zeros((num_rows, vocab), dtype=torch.int32, device=ids.device)
     valid = (seg >= 0) & (ids >= 0) & (seg < num_rows) & (ids < vocab)
-    flat = seg[valid].to(torch.int64) * vocab + ids[valid].to(torch.int64)
-    ones = torch.ones(flat.shape, dtype=torch.int32, device=ids.device)
-    out.view(-1).index_put_((flat,), ones, accumulate=True)
+    # padding adds 0 to cell 0: every shape is static (no boolean mask), so
+    # the dry run can trace it on fake tensors
+    flat = torch.where(valid, seg.to(torch.int64) * vocab + ids.to(torch.int64), 0)
+    out.view(-1).index_put_((flat,), valid.to(torch.int32), accumulate=True)
     return out
 
 

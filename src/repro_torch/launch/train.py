@@ -11,9 +11,8 @@ optimizer state is, and both are returned. Metrics are 0-dim tensors on
 the model's device; nothing waits on the host.
 
 Optimizer policy: ≥50B params → Adafactor (factored second moments);
-smaller models → AdamW with bf16 moments. The optimizer state's
-``PartitionSpec``s (the reference's ``opt_state_specs``) come with the
-sharding slice.
+smaller models → AdamW with bf16 moments. :func:`opt_state_specs` lays the
+optimizer state out as its parameters are (``runtime/sharding.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ from repro_torch.models import transformer as lm_mod
 from repro_torch.optim import adafactor, adamw, apply_updates, clip_by_global_norm, warmup_cosine
 from repro_torch.optim.clip import leaves
 from repro_torch.optim.optimizers import tree_map
+from repro_torch.runtime.sharding import P
 
 
 def pick_optimizer(num_params: int):
@@ -35,6 +35,32 @@ def pick_optimizer(num_params: int):
     if num_params >= 50e9:
         return adafactor(lr), "adafactor"
     return adamw(lr, moment_dtype=torch.bfloat16), "adamw"
+
+
+def opt_state_specs(opt_name: str, param_specs, shapes_tree):
+    """Specs of the optimizer state, derived from the parameters' specs
+    (trees of the same structure, whatever their nesting), under the names
+    the optimizers' state uses: AdamW ``m``, ``v``, ``count``; SGD ``mu``,
+    ``count``; Adafactor ``stats/<leaf>/r|c`` (row and column statistics
+    of a leaf of two or more dimensions, each its parameter's spec less the
+    reduced dimension) or ``stats/<leaf>/v``, and ``count``."""
+    if opt_name == "adamw":
+        return {"m": param_specs, "v": param_specs, "count": P()}
+    if opt_name == "sgd":
+        return {"mu": param_specs, "count": P()}
+    if opt_name == "adafactor":
+        def walk(spec, shape):
+            if isinstance(spec, dict):
+                return {k: walk(spec[k], shape[k]) for k in spec}
+            if isinstance(spec, list):
+                return [walk(s, t) for s, t in zip(spec, shape)]
+            parts = P(*spec).padded(len(shape))
+            if len(shape) >= 2:
+                return {"r": P(*parts[:-1]), "c": P(*parts[:-2], parts[-1])}
+            return {"v": spec}
+
+        return {"stats": walk(param_specs, shapes_tree), "count": P()}
+    raise ValueError(opt_name)
 
 
 def _grads(loss: torch.Tensor, params: dict) -> dict:

@@ -102,7 +102,7 @@ def _mean_layers(params: GraphSAGE, feats, edge_index, cfg: GNNConfig) -> torch.
     ``h[src]`` clamps, a dst out of range is dropped)."""
     n = feats.shape[0]
     src, dst = edge_index[0], edge_index[1]
-    deg = segment_sum(torch.ones(dst.shape, dtype=torch.float32, device=dst.device), dst, n)
+    deg = segment_sum(torch.ones_like(dst, dtype=torch.float32), dst, n)
     deg = torch.clamp(deg, min=1.0)[:, None]
     h = feats.to(cfg.torch_dtype)
     for l in range(cfg.n_layers):
@@ -143,8 +143,7 @@ def forward_batched_graphs(params: GraphSAGE, feats, edge_index, graph_ids,
     n = feats.shape[0]
     h = _mean_layers(params, feats, edge_index, cfg)
     pooled = segment_sum(h, graph_ids, n_graphs)
-    sizes = segment_sum(torch.ones((n,), dtype=torch.float32, device=h.device),
-                        graph_ids, n_graphs)
+    sizes = segment_sum(torch.ones_like(graph_ids, dtype=torch.float32), graph_ids, n_graphs)
     pooled = pooled / torch.clamp(sizes, min=1.0)[:, None]
     return pooled @ params["head"]["w"] + params["head"]["b"]
 

@@ -32,23 +32,33 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import (
+    DATA_AXES,
     apply_rope,
     blocked_attention,
     decode_attention,
+    embed_lookup,
     ffn,
+    maybe_shard,
+    merge_heads,
     moe_ffn_ep,
     rms_norm,
+    shard_batch,
+    split_heads,
+    write_position,
 )
 from repro_torch.models.params import flat_leaves
 
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """One LM architecture. The fields are the reference's, less its
-    compile and sharding knobs (``unroll_layers``, ``shard_decode_dmodel``,
-    ``zero3_gather_weights``, ``moe_combine_dtype``), which come with the
-    sharding slice. ``remat`` recomputes each block's activations in the
-    backward pass (:func:`forward` under autograd); serving ignores it.
+    """One LM architecture. The fields are the reference's, less
+    ``unroll_layers``: the port's layer loop is eager Python, so always
+    unrolled, and the field would change nothing. ``remat`` recomputes each
+    block's activations in the backward pass (:func:`forward` under
+    autograd); serving ignores it. The three sharding knobs act under an
+    active mesh on DTensor parameters (the dry run) and are no-ops
+    otherwise, but for ``moe_combine_dtype``, which the expert-parallel
+    combine reads.
     """
 
     name: str
@@ -83,6 +93,15 @@ class LMConfig:
     dtype: str = "float32"          # params + activations
     kv_chunk: int = 1024            # flash-attention chunk
     remat: bool = True
+    # d_model-sharded decode activations (2D tensor-parallel serving: keeps
+    # the FSDP weight shards from being gathered per decoded token), and a
+    # reduced-precision MoE combine
+    shard_decode_dmodel: bool = False
+    moe_combine_dtype: str = "float32"
+    # ZeRO-3: lay each layer's weights out (replicated, model) at their use
+    # point, so the FSDP shard is gathered once a layer instead of
+    # (B, S, ff)-sized partial matmul outputs being all-reduced
+    zero3_gather_weights: bool = False
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -303,9 +322,9 @@ def _gqa_qkv(p: dict, x: torch.Tensor, cfg: LMConfig, positions: torch.Tensor):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, Dh)
-    k = k.reshape(B, S, K, Dh)
-    v = v.reshape(B, S, K, Dh)
+    q = split_heads(q, B, S, H, Dh)
+    k = split_heads(k, B, S, K, Dh)
+    v = split_heads(v, B, S, K, Dh)
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q)
         k = rms_norm(p["k_norm"], k)
@@ -320,7 +339,7 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg: LMConfig, positions: torch.Tens
         q, k, v, causal=True, q_chunk=cfg.kv_chunk, kv_chunk=cfg.kv_chunk
     )
     B, S = x.shape[:2]
-    return o.reshape(B, S, -1) @ p["wo"], (k, v)
+    return merge_heads(o, B, S, -1) @ p["wo"], (k, v)
 
 
 def gqa_decode(p: dict, x: torch.Tensor, cfg: LMConfig, cache: dict, pos: int):
@@ -329,10 +348,10 @@ def gqa_decode(p: dict, x: torch.Tensor, cfg: LMConfig, cache: dict, pos: int):
     B = x.shape[0]
     q, k_new, v_new = _gqa_qkv(p, x, cfg, _positions(pos, x.device))
     k, v = cache["k"], cache["v"]
-    k[:, pos] = k_new[:, 0].to(k.dtype)
-    v[:, pos] = v_new[:, 0].to(v.dtype)
+    write_position(k, pos, k_new[:, 0])
+    write_position(v, pos, v_new[:, 0])
     o = decode_attention(q, k, v, pos)
-    return o.reshape(B, 1, -1) @ p["wo"], {"k": k, "v": v}
+    return merge_heads(o, B, 1, -1) @ p["wo"], {"k": k, "v": v}
 
 
 def _mla_q(p: dict, x: torch.Tensor, cfg: LMConfig, positions: torch.Tensor):
@@ -344,7 +363,7 @@ def _mla_q(p: dict, x: torch.Tensor, cfg: LMConfig, positions: torch.Tensor):
         q = cq @ p["w_uq"]
     else:
         q = x @ p["w_uq"]
-    q = q.reshape(B, S, H, nope + rope)
+    q = split_heads(q, B, S, H, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     return q_nope, q_rope
@@ -359,15 +378,15 @@ def mla_attention(p: dict, x: torch.Tensor, cfg: LMConfig, positions: torch.Tens
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
     ckv = rms_norm(p["kv_ln"], x @ p["w_dkv"])
     kr = apply_rope(x @ p["w_kr"], positions, cfg.rope_theta)
-    k_nope = (ckv @ p["w_uk"]).reshape(B, S, H, nope)
-    v = (ckv @ p["w_uv"]).reshape(B, S, H, vd)
+    k_nope = split_heads(ckv @ p["w_uk"], B, S, H, nope)
+    v = split_heads(ckv @ p["w_uv"], B, S, H, vd)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, H, rope)], dim=-1)
     o = blocked_attention(
         q, k, v, causal=True, q_chunk=cfg.kv_chunk, kv_chunk=cfg.kv_chunk,
         scale=(nope + rope) ** -0.5,
     )
-    return o.reshape(B, S, -1) @ p["wo"], (ckv, kr)
+    return merge_heads(o, B, S, -1) @ p["wo"], (ckv, kr)
 
 
 def mla_decode(p: dict, x: torch.Tensor, cfg: LMConfig, cache: dict, pos: int):
@@ -384,10 +403,10 @@ def mla_decode(p: dict, x: torch.Tensor, cfg: LMConfig, cache: dict, pos: int):
     ckv_new = rms_norm(p["kv_ln"], x @ p["w_dkv"])
     kr_new = apply_rope(x @ p["w_kr"], positions, cfg.rope_theta)
     ckv, kr = cache["ckv"], cache["kr"]
-    ckv[:, pos] = ckv_new[:, 0].to(ckv.dtype)
-    kr[:, pos] = kr_new[:, 0].to(kr.dtype)
+    write_position(ckv, pos, ckv_new[:, 0])
+    write_position(kr, pos, kr_new[:, 0])
     # absorb W_uk into q: q_eff[b,h,r] = Σ_n q_nope[b,h,n] · W_uk[r, h, n]
-    w_uk = p["w_uk"].reshape(r, H, nope)
+    w_uk = split_heads(p["w_uk"], r, H, nope)
     q_eff = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
     scale = (nope + rope) ** -0.5
     ckv_f = ckv.float()
@@ -399,9 +418,9 @@ def mla_decode(p: dict, x: torch.Tensor, cfg: LMConfig, cache: dict, pos: int):
     s = s.masked_fill(~mask[None, None, None, :], -math.inf)
     pattn = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bhqs,bsr->bqhr", pattn, ckv_f)  # latent ctx
-    w_uv = p["w_uv"].reshape(r, H, vd)
+    w_uv = split_heads(p["w_uv"], r, H, vd)
     o = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv.float()).to(x.dtype)
-    return o.reshape(B, 1, -1) @ p["wo"], {"ckv": ckv, "kr": kr}
+    return merge_heads(o, B, 1, -1) @ p["wo"], {"ckv": ckv, "kr": kr}
 
 
 # --------------------------------------------------------------------------
@@ -429,22 +448,55 @@ def _ffn_part(p: dict, h: torch.Tensor, cfg: LMConfig):
             top_k=cfg.top_k,
             capacity_factor=cfg.capacity_factor,
             expert_kind=cfg.ffn_kind,
+            combine_dtype=(
+                None if cfg.moe_combine_dtype == "float32"
+                else getattr(torch, cfg.moe_combine_dtype)
+            ),
         )
     return ffn(p, h, cfg.ffn_kind), torch.zeros((), dtype=torch.float32, device=h.device)
 
 
+# weight name → model-parallel dim position (for the ZeRO-3 use-point gather)
+_Z3_IN = ("wq", "wk", "wv", "w_in", "w_gate", "w_uq", "w_uk", "w_uv",
+          "sh_w_in", "sh_w_gate")  # (d_in, X·model)
+_Z3_OUT = ("wo", "w_out", "sh_w_out")  # (X·model, d_out)
+_Z3_REP = ("w_dq", "w_dkv", "w_kr")  # no model dim → fully gathered
+
+
+def _zero3(p: dict, cfg: LMConfig) -> dict:
+    """At the use point, lay this layer's FSDP-sharded weights out back to
+    (replicated over data, model-sharded): one all-gather of the small
+    weight shard a layer instead of all-reducing activation-sized partial
+    contractions (the ZeRO-3 schedule)."""
+    if not cfg.zero3_gather_weights:
+        return p
+    out = {}
+    for k, v in p.items():
+        if k in _Z3_IN:
+            out[k] = maybe_shard(v, None, "model")
+        elif k in _Z3_OUT:
+            out[k] = maybe_shard(v, "model", None)
+        elif k in _Z3_REP:
+            out[k] = maybe_shard(v, None, None)
+        else:
+            out[k] = v
+    return out
+
+
 def block(p: dict, h: torch.Tensor, cfg: LMConfig, positions: torch.Tensor):
+    p = _zero3(p, cfg)
     attn_fn = mla_attention if cfg.attn == "mla" else gqa_attention
     a, _ = attn_fn(p, rms_norm(p["ln1"], h), cfg, positions)
-    h = h + a
+    h = shard_batch(h + a)
     f, aux = _ffn_part(p, rms_norm(p["ln2"], h), cfg)
-    return h + f, aux
+    return shard_batch(h + f), aux
 
 
 def block_decode(p: dict, h: torch.Tensor, cfg: LMConfig, cache: dict, pos: int):
+    p = _zero3(p, cfg)
     dec_fn = mla_decode if cfg.attn == "mla" else gqa_decode
     a, cache = dec_fn(p, rms_norm(p["ln1"], h), cfg, cache, pos)
-    h = h + a
+    h = shard_batch(h + a)
     f, _ = _ffn_part(p, rms_norm(p["ln2"], h), cfg)
     return h + f, cache
 
@@ -460,7 +512,7 @@ def _logits(hn: torch.Tensor, out_head: torch.Tensor) -> torch.Tensor:
 
 
 def _embed(params: TransformerLM, tokens: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    return params.embed[tokens.long()].to(cfg.torch_dtype)
+    return shard_batch(embed_lookup(params.embed, tokens).to(cfg.torch_dtype))
 
 
 def forward(params: TransformerLM, tokens: torch.Tensor, cfg: LMConfig):
@@ -490,9 +542,16 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     so does its gradient, without a (B, S, V) one-hot. Labels must lie in
     the vocabulary, as the embedding lookup already requires."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return lse - picked
+    # log-sum-exp about the (constant) row max: on vocab-sharded logits
+    # each reduction is a partial over the shards, never a gather of them
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True)) + m
+    # the pick keeps its trailing axis until the difference is taken: on
+    # vocab-sharded DTensor logits (the dry run) the gather is a masked
+    # partial, which DTensor resolves only in the gather's own shape
+    picked = torch.gather(logits, -1, labels.long()[..., None])
+    return (lse - picked)[..., 0]
 
 
 def loss_fn(params: TransformerLM, batch: dict, cfg: LMConfig):
@@ -555,11 +614,11 @@ def prefill(params: TransformerLM, tokens: torch.Tensor, cfg: LMConfig):
     attn_fn = mla_attention if cfg.attn == "mla" else gqa_attention
     kvs = []
     for layer in params.layers:
-        p = layer.tensors()
+        p = _zero3(layer.tensors(), cfg)
         a, kv = attn_fn(p, rms_norm(p["ln1"], h), cfg, positions)
-        h = h + a
+        h = shard_batch(h + a)
         f, _ = _ffn_part(p, rms_norm(p["ln2"], h), cfg)
-        h = h + f
+        h = shard_batch(h + f)
         kvs.append(kv)
     hn = rms_norm(params.final_ln, h[:, -1])
     logits = _logits(hn, params.out_head)
@@ -575,8 +634,14 @@ def decode_step(
     cache length so far). cache leaves are (L, B, S, ...); position ``pos``
     of every layer is written in place. Returns (logits f32 (B, V), cache)."""
     h = _embed(params, tokens, cfg)
+    if cfg.shard_decode_dmodel:
+        h = maybe_shard(h, None, None, DATA_AXES)
     for i, layer in enumerate(params.layers):
         layer_cache = {k: v[i] for k, v in cache.items()}
         h, _ = block_decode(layer.tensors(), h, cfg, layer_cache, pos)
+        if cfg.shard_decode_dmodel:
+            h = maybe_shard(h, None, None, DATA_AXES)
+        else:
+            h = shard_batch(h)
     hn = rms_norm(params.final_ln, h[:, -1])
     return _logits(hn, params.out_head), cache

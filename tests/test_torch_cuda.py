@@ -713,3 +713,45 @@ def test_one_train_step_on_the_card_equals_the_host(cuda, arch):
             err = (gc[name].cpu().double() - g.double()).abs().max().item()
             assert err <= 1e-3 * g.abs().max().item(), (name, err)
         assert max(g.abs().max().item() for g in gh.values()) >= 100 * 1e-4
+
+
+@pytest.mark.cuda
+def test_smoke_olmoe_moe_ffn_ep_on_two_ranks_sharing_the_card_equals_the_host(cuda):
+    """The smoke OLMoE's MoE layer expert-parallel on a (1, 2) gloo world
+    whose ranks share the card (collectives through host copies), against
+    the same world on the host: output and gradients."""
+    from repro_torch.configs import get_spec
+    from repro_torch.launch.moe_ep import moe_ep_on_world
+
+    cfg = get_spec("olmoe-1b-7b").smoke()
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.expert_d_ff
+    rng = np.random.default_rng(5)
+    p = {"router": rng.normal(size=(d, E)) * (2 / d) ** 0.5,
+         "w_in": rng.normal(size=(E, d, f)) * (2 / d) ** 0.5,
+         "w_gate": rng.normal(size=(E, d, f)) * (2 / d) ** 0.5,
+         "w_out": rng.normal(size=(E, f, d)) * (2 / f) ** 0.5}
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    x = rng.normal(size=(2, 32, d)).astype(np.float32)
+    kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor, aux_weight=0.01)
+    card = moe_ep_on_world(p, x, (1, 2), device="cuda", **kw)
+    host = moe_ep_on_world(p, x, (1, 2), device="cpu", **kw)
+    scale = np.abs(host["y"]).max()
+    assert scale > 0.1
+    assert np.abs(card["y"] - host["y"]).max() <= 1e-4 * scale
+    assert abs(card["aux"] - host["aux"]) <= 1e-5
+    for k, g in host["grads"].items():
+        assert np.abs(card["grads"][k] - g).max() <= 1e-4 * max(1.0, np.abs(g).max()), k
+
+
+@pytest.mark.cuda
+def test_tail_hist_share_on_the_card_equals_the_plain_version(cuda):
+    """One rank's share of ``cooc-wt10g/tail_hist``: 524,288 postings (of
+    8,388,608 over 16 data ranks) into 256 × 65,536."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    L, rows, V = 8_388_608 // 16, 256, 65_536
+    seg = torch.sort(torch.randint(0, rows, (L,), generator=g, device=cuda,
+                                   dtype=torch.int32)).values
+    ids = torch.randint(0, V, (L,), generator=g, device=cuda, dtype=torch.int32)
+    got = ops.segment_hist(ids, seg, num_rows=rows, vocab=V)
+    want = ref.segment_hist_ref(ids, seg, rows, V)
+    assert torch.equal(got, want) and int(got.sum()) == L

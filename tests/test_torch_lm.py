@@ -74,9 +74,12 @@ def _same_fields(cfg, ref_cfg) -> bool:
 
 
 def test_registry_has_the_reference_archs_but_the_cooc_config():
-    assert list_archs() == sorted(set(ref_list_archs()) - {"cooc-wt10g"})
+    """Every reference arch is registered, the co-occurrence config too
+    (it came with the dry run); an unknown id names the ones there are."""
+    assert list_archs() == sorted(ref_list_archs())
+    assert get_spec("cooc-wt10g").family == "cooc"
     with pytest.raises(KeyError, match="olmoe-1b-7b"):
-        get_spec("cooc-wt10g")
+        get_spec("cooc-wt9g")
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS + GNN_RECSYS_ARCHS)
@@ -85,6 +88,26 @@ def test_configs_are_copies_of_the_reference(arch):
     assert (mine.arch_id, mine.family, mine.notes) == (ref.arch_id, ref.family, ref.notes)
     for cfg, ref_cfg in ((mine.model, ref.model), (mine.smoke(), ref.smoke())):
         assert _same_fields(cfg, ref_cfg)
+    assert {k: dataclasses.astuple(v) for k, v in mine.shapes.items()} == {
+        k: dataclasses.astuple(v) for k, v in ref.shapes.items()
+    }
+
+
+def test_cooc_config_is_a_copy_of_the_reference_but_its_dtype():
+    """Every field of ``cooc-wt10g``'s config and of its smoke config, its
+    shapes and notes are the reference's. The one difference is ``dtype``,
+    on purpose: the port's Gram takes uint8 0/1 incidence and counts in
+    exact int32 (``core/distributed.py``), where the reference multiplies
+    bfloat16 (float32 in the smoke config)."""
+    mine, ref = get_spec("cooc-wt10g"), ref_get_spec("cooc-wt10g")
+    assert (mine.arch_id, mine.family, mine.notes) == (ref.arch_id, ref.family, ref.notes)
+    for cfg, ref_cfg, ref_dtype in ((mine.model, ref.model, "bfloat16"),
+                                    (mine.smoke(), ref.smoke(), "float32")):
+        assert [f.name for f in dataclasses.fields(cfg)] == [
+            f.name for f in dataclasses.fields(ref_cfg)]
+        assert dataclasses.astuple(dataclasses.replace(cfg, dtype=ref_cfg.dtype)) == (
+            dataclasses.astuple(ref_cfg))
+        assert (cfg.dtype, ref_cfg.dtype) == ("uint8", ref_dtype)
     assert {k: dataclasses.astuple(v) for k, v in mine.shapes.items()} == {
         k: dataclasses.astuple(v) for k, v in ref.shapes.items()
     }

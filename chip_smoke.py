@@ -394,6 +394,20 @@ def check_total(seg, c) -> int:
     return occ
 
 
+def int_mm_operands(a, *bs):
+    """``torch._int_mm``'s operands for the Gram products ``aᵀ b`` of 0/1
+    uint8 tiles: viewed as int8, the contraction padded with zero documents
+    to a multiple of 8 (its requirement), ``aᵀ`` row-major and each ``b``
+    column-major. That is cuBLASLt's TN layout: with ``b`` row-major the 16
+    products of 2l's share took 132.8 ms on the H100 instead of 16.7."""
+    import torch
+
+    pad = -a.shape[0] % 8
+    a8, *b8 = (torch.nn.functional.pad(x, (0, 0, 0, pad)).view(torch.int8)
+               for x in (a, *bs))
+    return a8.t().contiguous(), [b.t().contiguous().t() for b in b8]
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn()`` on the card, by CUDA events around a
     loop of ``reps`` calls, after one warm-up call. Where a call's host work
@@ -1852,7 +1866,9 @@ def finish_dryrun(procs) -> list[dict]:
 def cooc_shares(kernels) -> dict:
     """2l-ii: one rank's share of each co-occurrence cell on the card,
     each held with ``torch.equal`` against its plain version and timed by
-    CUDA events beside its own bound."""
+    CUDA events beside its own bound and one library call of the same
+    function (``torch.bincount``, ``torch._int_mm``), whose output must
+    equal the kernel's."""
     import torch
     from repro_torch.configs import get_spec
     from repro_torch.kernels import ops, ref
@@ -1888,11 +1904,28 @@ def cooc_shares(kernels) -> dict:
     check(int(h.sum()) == L, "2l: the tail_hist share lost postings")
     check(torch.equal(products[1], ref.cooc_gram_ref(mine, blocks[1])),
           "2l: cooc_gram differs from its plain version on the head_gram share")
+    # the yardsticks' inputs, laid out before the timed calls
+    valid = (seg >= 0) & (ids >= 0)
+    keys = seg[valid].to(torch.int64) * V + ids[valid].to(torch.int64)
+    mine8, blocks8 = int_mm_operands(mine, *blocks)
+
+    def bincount():
+        return torch.bincount(keys, minlength=rows * V)
+
+    def int_mm():
+        return [torch._int_mm(mine8, b) for b in blocks8]
+
+    check(torch.equal(bincount().view(rows, V), h.to(torch.int64)),
+          "2l: torch.bincount differs from segment_hist on the tail_hist share")
+    check(all(torch.equal(a, b) for a, b in zip(int_mm(), products)),
+          "2l: torch._int_mm differs from cooc_gram on the head_gram share")
     del products
     out = {"launches": launches, "L": L, "grid": (rows, V), "gram": (D, M, M, COOC_MODEL)}
     out["hist_ms"] = cuda_ms(hist, 10)
     out["hist_plain_ms"] = cuda_ms(lambda: ref.segment_hist_ref(ids, seg, rows, V), 3)
+    out["hist_library_ms"] = cuda_ms(bincount, 10)
     out["gram_ms"] = cuda_ms(gram, 3)
+    out["gram_library_ms"] = cuda_ms(int_mm, 3)
     # bounds: postings read and the grid written; the 16 products' int8
     # operations (the bytes, 16 blocks in and 16 int32 strips out, weigh less)
     out["hist_bound_ms"] = (2 * L * 4 + rows * V * 4) / HBM_BYTES_PER_S * 1e3
@@ -2018,15 +2051,18 @@ def print_sharding(sp: dict, smi: str) -> None:
     sh = sp["shares"]
     dr = sh["dryrun"]
     print(f"[sharding] tail_hist share: segment_hist of {sh['L']} postings into "
-          f"{sh['grid']} {sh['hist_ms']:.4f} ms (plain {sh['hist_plain_ms']:.4f} ms, bound "
+          f"{sh['grid']} {sh['hist_ms']:.4f} ms (plain {sh['hist_plain_ms']:.4f} ms, "
+          f"torch.bincount {sh['hist_library_ms']:.4f} ms, equal; bound "
           f"{sh['hist_bound_ms']:.4f} ms by bytes); the dry run's per-rank t_memory "
           f"{dr['tail_hist']['t_memory_s'] * 1e3:.4f} ms, t_collective "
           f"{dr['tail_hist']['t_collective_s'] * 1e3:.4f} ms | {smi}")
     D, M, N, n = sh["gram"]
     print(f"[sharding] head_gram share: {n} cooc_gram products of ({D}, {M}) x ({D}, {N}) "
-          f"uint8 {sh['gram_ms']:.4f} ms (bound {sh['gram_bound_ms']:.4f} ms by int8 "
-          f"operations); the dry run's per-rank t_compute "
-          f"{dr['head_gram']['t_compute_s'] * 1e3:.4f} ms at the int8 peak, t_collective "
+          f"uint8 {sh['gram_ms']:.4f} ms (torch._int_mm on the blocks as int8, B "
+          f"column-major, {sh['gram_library_ms']:.4f} ms, equal; bound "
+          f"{sh['gram_bound_ms']:.4f} ms by int8 operations); the dry run's per-rank "
+          f"t_compute {dr['head_gram']['t_compute_s'] * 1e3:.4f} ms at the int8 peak, "
+          f"t_collective "
           f"{dr['head_gram']['t_collective_s'] * 1e3:.4f} ms | {smi}")
     ep = sp["ep"]
     print(f"[sharding] moe_ffn_ep OLMoE-1B-7B layer on {EP_MESH} ranks sharing the card, "
@@ -2942,6 +2978,11 @@ def check_topk_gather(store) -> dict:
     k_big, k_sort = min(1000, L), min(4096, L)
     for score in SCORES:
         scored = ref.score_tile(*tile, num_docs=num_docs, score=score)
+        # torch.topk leaves the order of ties open: its values, not its ids,
+        # must equal the kernel's
+        _, ks = topk_gather_cuda(*tile, num_docs=num_docs, score=score, k=k_sort)
+        check(torch.equal(torch.topk(scored, k_sort, dim=1).values, ks),
+              f"torch.topk's values differ from topk_gather's ({score}, k={k_sort})")
         out["per_score"][score] = {
             "ms": both_ms(lambda: topk_gather_cuda(
                 *tile, num_docs=num_docs, score=score, k=10), reps=50),
@@ -2960,6 +3001,8 @@ def check_topk_gather(store) -> dict:
     out["bound_ms"] = (12 * B * L + 4 * B + 8 * B * 10) / HBM_BYTES_PER_S * 1e3
     out["bound_ms_k1000"] = (
         (12 * B * L + 4 * B + 8 * B * k_big) / HBM_BYTES_PER_S * 1e3)
+    out["bound_ms_k4096"] = (
+        (12 * B * L + 4 * B + 8 * B * k_sort) / HBM_BYTES_PER_S * 1e3)
     return out
 
 
@@ -3022,14 +3065,13 @@ def check_cooc_gram(cd, run_cd) -> dict:
           "cooc_gram on all-ones tiles: a count is not D")
 
     def int_mm(a, b):
-        """``torch._int_mm`` on the same tiles as int8, the contraction
-        padded with zero documents to a multiple of 8 (its requirement),
-        before the timed call."""
-        pad = -a.shape[0] % 8
-        a8 = torch.nn.functional.pad(a, (0, 0, 0, pad)).to(torch.int8)
-        b8 = torch.nn.functional.pad(b, (0, 0, 0, pad)).to(torch.int8)
-        at = a8.t().contiguous()
-        return lambda: torch._int_mm(at, b8)
+        """``torch._int_mm`` on the same tiles, its operands laid out before
+        the timed call; its product must equal the kernel's."""
+        at, (bc,) = int_mm_operands(a, b)
+        check(torch.equal(torch._int_mm(at, bc), cooc_gram_cuda(a, b)),
+              f"torch._int_mm differs from cooc_gram on {tuple(a.shape)} x "
+              f"{tuple(b.shape)}")
+        return lambda: torch._int_mm(at, bc)
 
     def timed(a, b, reps=50):
         D, M = a.shape
@@ -3431,7 +3473,8 @@ def run() -> int:
               f"bound {tk['bound_ms_k1000']:.4f} ms "
               f"({tk['bound_ms_k1000'] / t['ms_k1000'][0]:.1%} of bound); "
               f"k=4096: kernel {show(t['ms_k4096'])}, torch.topk "
-              f"{show(t['library_ms_k4096'])} | {smi}")
+              f"{show(t['library_ms_k4096'])}, bound {tk['bound_ms_k4096']:.4f} ms "
+              f"({tk['bound_ms_k4096'] / t['ms_k4096'][0]:.1%} of bound) | {smi}")
     print(f"[cooc_gram] equal to plain on all cases; head tile (D, M, N) = "
           f"{cg['shape']}: kernel {show(cg['ms'])}, plain (float32 matmul) "
           f"{show(cg['plain_ms'])}, torch._int_mm {show(cg['library_ms'])}, "
@@ -3483,6 +3526,7 @@ def run() -> int:
           f"{wt['batch_ms']:.2f} ms; building its padded tile alone on the "
           f"host {wt['tile_ms']:.2f} ms")
     pmi = tk["per_score"]["pmi"]
+    shares = sp["shares"]
     total = {k.name: sum(p[k.name] for p in paths.values()) for k in ops.KERNELS}
     device_s = {k: {what: t[k] for what, t in path_kernel_s.items() if t[k]}
                 for k in KERNEL_NAMES}
@@ -3503,6 +3547,12 @@ def run() -> int:
                        "host_ms": t["host_ms"], "library_ms": t["library_ms"][0],
                        "bound_ms": t["bound_ms"]}
                 for name, t in sh["shapes"].items()
+            } | {
+                "2l tail_hist share": {
+                    "tokens": shares["L"], "grid": shares["grid"], "ms": shares["hist_ms"],
+                    "plain_ms": shares["hist_plain_ms"],
+                    "library_ms": shares["hist_library_ms"],
+                    "bound_ms": shares["hist_bound_ms"], "bound_by": "bytes"},
             },
         },
         {
@@ -3514,6 +3564,8 @@ def run() -> int:
             "plain_ms": pmi["plain_ms"][0], "bound_ms": tk["bound_ms"],
             "bound_by": "bytes", "library_ms": pmi["library_ms"][0],
             "device_ms": pmi["ms"][1],
+            "k4096": {"ms": pmi["ms_k4096"][0], "library_ms": pmi["library_ms_k4096"][0],
+                      "bound_ms": tk["bound_ms_k4096"], "bound_by": "bytes"},
         },
         {
             "name": "cooc_gram", "route": "cuda",
@@ -3524,6 +3576,12 @@ def run() -> int:
             "plain_ms": cg["plain_ms"][0], "bound_ms": cg["bound_ms"],
             "bound_by": cg["bound_by"], "library_ms": cg["library_ms"][0],
             "device_ms": cg["ms"][1],
+            "shapes": {
+                "2l head_gram share": {
+                    "products": shares["gram"][3], "shape": shares["gram"][:3],
+                    "ms": shares["gram_ms"], "library_ms": shares["gram_library_ms"],
+                    "bound_ms": shares["gram_bound_ms"], "bound_by": "operations"},
+            },
         },
         {
             "name": "bitpair", "route": "cuda",

@@ -421,7 +421,12 @@ class Store:
         the commit: with ``single_commit`` the pending directory is then
         removed before the exception propagates, so an abort leaves no
         trace. Only a crash (SIGKILL mid-seal) leaves a pending dir behind,
-        and ``Store.open``'s dead-pid sweep collects those."""
+        and ``Store.open``'s dead-pid sweep collects those.
+
+        The returned segment is opened inside the commit that publishes it:
+        once the lock is released a compaction (a daemon thread on this
+        handle, or another process) may merge it away and unlink its
+        directory, and an open after that would fail."""
         if single_commit:
             tmp_dir = os.path.join(
                 self.path, f".pending-{os.getpid()}-{id(rows):x}"
@@ -440,7 +445,7 @@ class Store:
                 m["next_seg_id"] += 1
                 os.replace(tmp_dir, os.path.join(self.path, name))
                 m["segments"].append(name)
-                holder["name"] = name
+                holder["seg"] = self._segment(name)
 
             try:
                 self._commit(mut)
@@ -450,20 +455,22 @@ class Store:
                 # leaking it until some future dead-pid sweep
                 shutil.rmtree(tmp_dir, ignore_errors=True)
                 raise
-            return self._segment(holder["name"])
+            return holder["seg"]
         name, seg_dir = self._reserve_segment()
+        holder: dict = {}
 
         def mut_append(m):
             if extra_mutate is not None:
                 extra_mutate(m)
             m["segments"].append(name)
+            holder["seg"] = self._segment(name)
 
         write_segment(
             seg_dir, rows, self.vocab_size, df=df, num_docs=num_docs,
             source=source, version=self.segment_version,
         )
         self._commit(mut_append)
-        return self._segment(name)
+        return holder["seg"]
 
     def append_collection(
         self,
@@ -548,11 +555,13 @@ class Store:
             version=self.segment_version,
         )
         dropped = set(old_names)
+        holder: dict = {}
 
         def mut(m):
             m["segments"] = [
                 n for n in m["segments"] if n not in dropped
             ] + [name]
+            holder["seg"] = self._segment(name)
 
         self._commit(mut)
         for n in old_names:
@@ -560,7 +569,7 @@ class Store:
             # unlink only detaches the names: readers that opened the old
             # segments before this commit keep valid mmaps until they close
             shutil.rmtree(os.path.join(self.path, n), ignore_errors=True)
-        return self._segment(name)
+        return holder["seg"]
 
     def plan_compaction(
         self, *, min_segments: int = 2, tier_ratio: float = 4.0,

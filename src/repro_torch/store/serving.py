@@ -895,7 +895,8 @@ class CoocServer:
         self._stats_final: dict = {}
         self._worker_last: dict[int, dict] = {}   # freshest payload per worker
         self._worker_final: set[int] = set()
-        self._worker_archive: list[dict] = []     # dead incarnations' last payloads
+        # (worker id, payload): each dead incarnation's last snapshot
+        self._worker_archive: list[tuple[int, dict]] = []
         self._procs: list = []
         self._boxes: dict[int, queue.Queue] = {}
         self._client_ids = itertools.count()
@@ -1119,7 +1120,7 @@ class CoocServer:
         with self._stats_lock:
             payload = self._worker_last.pop(wid, None)
             if payload is not None:
-                self._worker_archive.append(payload)
+                self._worker_archive.append((wid, payload))
             self._worker_final.discard(wid)
         inc = self._incarnation.get(wid, 0) + 1
         self._incarnation[wid] = inc
@@ -1218,9 +1219,11 @@ class CoocServer:
         on v2 compressed stores: blocks decoded, block-cache hit rate,
         bloom negative rate — zeros on raw v1), ``metrics`` (the raw merged
         snapshot — feed it to ``repro_torch.obs.prometheus_text``),
-        ``per_worker`` (each live worker's own counters, e.g. per-worker
-        ``cache_hit_rate`` under routing, its ``device`` and its
-        ``kernel_launches``), ``kernel_launches`` (summed over every
+        ``per_worker`` (each slot's own counters from its freshest
+        snapshot, a dead incarnation's if its replacement has not reported
+        or none was spawned, e.g. per-worker ``cache_hit_rate`` under
+        routing, its ``device`` and its ``kernel_launches``; a slot that
+        never reported has no entry), ``kernel_launches`` (summed over every
         incarnation), ``worker_startup_s`` (each slot's current incarnation,
         spawn to ready)."""
         if not self._started:
@@ -1230,9 +1233,15 @@ class CoocServer:
 
     def _aggregate(self, *, live: bool, workers_lost: int = 0) -> dict:
         with self._stats_lock:
-            current = {w: self._worker_last[w] for w in sorted(self._worker_last)}
-            payloads = list(self._worker_archive) + list(current.values())
-        per_worker = {w: p["stats"] for w, p in current.items()}
+            current = dict(self._worker_last)
+            archive = list(self._worker_archive)
+        payloads = [p for _, p in archive] + list(current.values())
+        # a slot's entry is its current incarnation's snapshot, else the
+        # last one archived when an incarnation died: a dead slot keeps its
+        # place whether or not the supervisor saw the death before stop()
+        latest = dict(archive)
+        latest.update(current)
+        per_worker = {w: p["stats"] for w, p in latest.items()}
         stat_dicts = [p["stats"] for p in payloads]
         agg = {
             k: sum(d[k] for d in stat_dicts)

@@ -31,6 +31,7 @@ from repro_torch.store import (  # noqa: E402
     CompactionPolicy,
     QueryEngine,
     Store,
+    merge_row_streams,
 )
 from repro_torch.stream import QueueSource, StreamConfig, StreamIngestor  # noqa: E402
 
@@ -138,6 +139,60 @@ class TestCompactionDaemon:
         after = QueryEngine(Store.open(store.path), device="cpu").topk(np.arange(20), k=5)
         np.testing.assert_array_equal(before[0], after[0])
         np.testing.assert_array_equal(before[1], after[1])
+
+
+def compact_after_next_new_segment(store):
+    """Wrap ``store._commit``: right after the first commit that publishes a
+    new segment, merge every segment away inline, as the daemon thread (or
+    another process) may once the commit's lock is released. The merge
+    unlinks the new segment's directory before the adding call returns."""
+    commit = store._commit
+    armed = [True]
+
+    def commit_then_compact(mutate):
+        before = set(store.segment_names)
+        commit(mutate)
+        if armed[0] and set(store.segment_names) - before:
+            armed[0] = False
+            store.compact()
+
+    store._commit = commit_then_compact
+    return armed
+
+
+@pytest.mark.parametrize("how", ["rows", "rows-single-commit", "compact"])
+def test_a_segment_merged_away_after_its_commit_still_opens(tmp_path, how):
+    """A segment published by an append (``add_segment_from_rows``, both
+    commit styles) or by a merge (``compact``) can be merged away by a
+    compaction that runs as soon as the publishing commit releases the
+    lock. The call opens its segment inside that commit, so it returns a
+    readable segment instead of failing on the unlinked directory, and the
+    store keeps every count."""
+    a = micro_store(str(tmp_path / "a"), docs=12, seal_docs=6)
+    b, _ = count_to_store("list-scan", corpus(30, seed=3), str(tmp_path / "b"),
+                          device="cpu")
+    want = a.dense() + b.dense()
+    armed = compact_after_next_new_segment(a)
+    if how == "compact":
+        a.add_segment_from_rows(
+            merge_row_streams([s.iter_rows() for s in b.segments]),
+            df=b.df(), num_docs=b.num_docs,
+        )
+        armed[0] = True
+        seg = a.compact()
+        assert seg.nnz == Store.open(a.path).segments[0].nnz
+    else:
+        seg = a.add_segment_from_rows(
+            merge_row_streams([s.iter_rows() for s in b.segments]),
+            df=b.df(), num_docs=b.num_docs,
+            single_commit=how == "rows-single-commit",
+        )
+        assert seg.nnz == b.segments[0].nnz
+    assert not armed[0]  # the merge ran and unlinked the returned segment
+    assert not os.path.exists(seg.path)
+    assert len(a.segment_names) == 1
+    np.testing.assert_array_equal(a.dense(), want)
+    np.testing.assert_array_equal(Store.open(a.path).dense(), want)
 
 
 @pytest.mark.parametrize("fanout", [2, 4])

@@ -41,6 +41,16 @@ def serve_cpu(path, **kw):
     return CoocServer(path, device="cpu", **kw)
 
 
+def wait_until_ready(server, timeout: float = 60.0) -> None:
+    """Block until every worker has reported ready (its store open, its
+    loop about to start). A scenario timed against a stall must not begin
+    while a worker under load is still importing and opening its store."""
+    deadline = time.monotonic() + timeout
+    while None in server.stats()["worker_startup_s"]:
+        assert time.monotonic() < deadline, "the workers never reported ready"
+        time.sleep(0.02)
+
+
 @pytest.fixture(scope="module")
 def coll():
     return synthetic_zipf_collection(150, vocab=128, mean_len=12, seed=7)
@@ -316,6 +326,8 @@ def test_overloaded_retry_then_succeed_under_stall(store_path, faults):
     faults("stall-queue=1.0:1")
     with serve_cpu(store_path, workers=1, batch_window_ms=0.0,
                    max_inflight=2, max_respawns=0) as server:
+        wait_until_ready(server)
+
         def fill(c):
             for _ in range(100):
                 try:
@@ -426,3 +438,48 @@ def test_server_counts_lost_workers_not_silent(store_path):
     assert stats["requests"] == 20
     assert stats["server_timing"]["queue_wait_ms"]["count"] == 20
     assert len(stats["per_worker"]) == 2
+
+
+def test_dead_slot_keeps_its_entry_when_the_supervisor_sees_it_first(store_path):
+    """The supervisor archives a dead worker's last snapshot as soon as it
+    sees the death; a ``stop()`` that comes first finds the corpse itself.
+    Both orders give the same final stats. This one waits for the
+    supervisor to have handled the death before stopping: the dead slot
+    keeps its ``per_worker`` entry and its traffic stays in the sums."""
+    server = serve_cpu(store_path, workers=2, batch_window_ms=1.0, routing=True,
+                       stats_interval_s=0.05, max_respawns=0)
+    handled, covered = threading.Event(), threading.Event()
+    on_death, absorb = server._on_worker_death, server._absorb_stats_msg
+    reported: dict = {}
+
+    def observed_death(wid, exitcode):
+        on_death(wid, exitcode)
+        handled.set()
+
+    def observed_snapshot(kind, wid, payload):
+        absorb(kind, wid, payload)
+        if kind != "ready":
+            reported[wid] = payload["stats"]["requests"]
+            if sum(reported.values()) == 20:
+                covered.set()
+
+    server._on_worker_death = observed_death
+    server._absorb_stats_msg = observed_snapshot
+    with server:
+        client = server.client()
+        for _ in range(10):
+            client.topk(np.arange(16), k=4)  # splits across both workers
+        assert covered.wait(30), f"snapshots cover {reported} requests"
+        victim = server._procs[0]
+        os.kill(victim.pid, signal.SIGKILL)
+        victim.join(timeout=30)
+        assert handled.wait(30), "the supervisor never saw the death"
+    stats = server.stats()
+    assert stats["workers_lost"] == 1
+    assert stats["requests"] == 20
+    assert stats["server_timing"]["queue_wait_ms"]["count"] == 20
+    assert len(stats["per_worker"]) == 2
+    assert [w["requests"] for w in stats["per_worker"]] == [
+        reported[0], reported[1]
+    ]
+    assert stats["resilience"]["degraded_workers"] == [0]

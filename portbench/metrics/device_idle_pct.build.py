@@ -1,0 +1,11 @@
+"""Share of the build window in which no operation ran on the card, from
+the profiler's trace of the harness process, where the builds run."""
+
+from yardstick import trace as T
+
+
+def read(ctx):
+    if not ctx.get("ops"):
+        return None
+    t0, t1 = ctx["window"]
+    return 100.0 * (1.0 - T.busy_s(ctx["ops"]) / (t1 - t0))

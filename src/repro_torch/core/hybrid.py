@@ -29,6 +29,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.list_scan import LAUNCH_TOKENS, _device_chunks
 from repro_torch.core.types import PairSink, emit_dense_rows, group_bounds
 from repro_torch.data.corpus import Collection
@@ -101,30 +102,39 @@ def tail_batch_end(lo: int, V: int) -> int:
 def _count_tail(idx: DeviceIndex, H: int, sink: PairSink) -> None:
     """Columns C[:t, t] of every tail term t >= H, by batches of terms
     [lo, hi): one ``segment_hist`` grid of ``(hi - lo, hi)`` cells each,
-    sized so that it holds at most ``TAIL_GRID_CELLS``."""
+    sized so that it holds at most ``TAIL_GRID_CELLS``. A batch that holds
+    a posting is timed in the spans of ``count_list_scan_segment``'s loop:
+    ``ingest/count_launch``, ``ingest/count_select``, ``ingest/count_emit``."""
     from repro_torch.kernels import ops as kops
 
     V = idx.vocab_size
     dev = idx.terms.device
     emit_keys = getattr(sink, "emit_keys", None)
+    reg = obs.get_registry()
     lo = H
     while lo < V:
         hi = tail_batch_end(lo, V)
+        if idx.term_ptr_host[lo] == idx.term_ptr_host[hi]:
+            lo = hi  # no postings: nothing to gather
+            continue
         grid = None
-        for tokens, seg in _device_chunks(idx, lo, hi, LAUNCH_TOKENS, lower=True):
-            if grid is None:
-                grid = torch.zeros((hi - lo, hi), dtype=torch.int32, device=dev)
-            kops.segment_hist(tokens, seg, num_rows=hi - lo, vocab=hi, out=grid)
+        with reg.span("ingest/count_launch"):
+            for tokens, seg in _device_chunks(idx, lo, hi, LAUNCH_TOKENS, lower=True):
+                if grid is None:
+                    grid = torch.zeros((hi - lo, hi), dtype=torch.int32, device=dev)
+                kops.segment_hist(tokens, seg, num_rows=hi - lo, vocab=hi, out=grid)
         if grid is not None:
-            flat = grid.view(-1)
-            nz = torch.nonzero(flat).squeeze(1)
-            counts = flat[nz].cpu().numpy().astype(np.int64)
-            nz = nz.cpu().numpy()
-            terms, prims = nz // hi + lo, nz % hi  # row-major: by term, then primary
-            if emit_keys is not None:
-                emit_keys(prims * V + terms, counts)
-            else:
-                tb = group_bounds(terms)
-                for s, e in zip(tb[:-1], tb[1:]):
-                    sink.emit_col(int(terms[s]), prims[s:e], counts[s:e])
+            with reg.span("ingest/count_select"):
+                flat = grid.view(-1)
+                nz = torch.nonzero(flat).squeeze(1)
+                counts = flat[nz].cpu().numpy().astype(np.int64)
+                nz = nz.cpu().numpy()
+            with reg.span("ingest/count_emit"):
+                terms, prims = nz // hi + lo, nz % hi  # row-major: by term, then primary
+                if emit_keys is not None:
+                    emit_keys(prims * V + terms, counts)
+                else:
+                    tb = group_bounds(terms)
+                    for s, e in zip(tb[:-1], tb[1:]):
+                        sink.emit_col(int(terms[s]), prims[s:e], counts[s:e])
         lo = hi

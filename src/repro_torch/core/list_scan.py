@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.types import PairSink, emit_dense_rows, group_bounds
 from repro_torch.data.corpus import Collection
 from repro_torch.data.index import DeviceIndex, InvertedIndex, build_inverted_index
@@ -240,6 +241,13 @@ def count_list_scan_segment(
 
     Byte-identical to ``count_list_scan`` in every sink: same rows, same
     counts, same emission order.
+
+    Each batch that holds a posting times its steps in three spans, whose
+    edges sit at the syncs the loop already has: ``ingest/count_launch``
+    (the gather with its token-count read, the grid's fill, the kernel
+    launches), ``ingest/count_select`` (``nonzero`` over the grid and the
+    copies back: the host waits here for the card) and
+    ``ingest/count_emit`` (the sink, with any spill it triggers).
     """
     from repro_torch.kernels import ops as kops
 
@@ -247,26 +255,32 @@ def count_list_scan_segment(
     idx = DeviceIndex.from_collection(c, dev)
     V = c.vocab_size
     emit_keys = getattr(sink, "emit_keys", None)
+    reg = obs.get_registry()
     batches = 0
     for lo in range(0, V, rows_per_batch):
         hi = min(lo + rows_per_batch, V)
+        if idx.term_ptr_host[lo] == idx.term_ptr_host[hi]:
+            continue  # no postings: nothing to gather
         grid = None
-        for tokens, seg in _device_chunks(idx, lo, hi, LAUNCH_TOKENS):
-            if grid is None:
-                grid = torch.zeros((hi - lo, V), dtype=torch.int32, device=dev)
-            kops.segment_hist(tokens, seg, num_rows=hi - lo, vocab=V, out=grid)
+        with reg.span("ingest/count_launch"):
+            for tokens, seg in _device_chunks(idx, lo, hi, LAUNCH_TOKENS):
+                if grid is None:
+                    grid = torch.zeros((hi - lo, V), dtype=torch.int32, device=dev)
+                kops.segment_hist(tokens, seg, num_rows=hi - lo, vocab=V, out=grid)
         if grid is None:
             continue
         batches += 1
-        flat = grid.view(-1)
-        nz = torch.nonzero(flat).squeeze(1)
-        counts = flat[nz].cpu().numpy().astype(np.int64)
-        keys = nz.cpu().numpy() + np.int64(lo) * V
-        if emit_keys is not None:
-            emit_keys(keys, counts)
-            continue
-        rows = keys // V
-        rb = group_bounds(rows)
-        for s, e in zip(rb[:-1], rb[1:]):
-            sink.emit_row(int(rows[s]), keys[s:e] - rows[s] * V, counts[s:e])
+        with reg.span("ingest/count_select"):
+            flat = grid.view(-1)
+            nz = torch.nonzero(flat).squeeze(1)
+            counts = flat[nz].cpu().numpy().astype(np.int64)
+            keys = nz.cpu().numpy() + np.int64(lo) * V
+        with reg.span("ingest/count_emit"):
+            if emit_keys is not None:
+                emit_keys(keys, counts)
+                continue
+            rows = keys // V
+            rb = group_bounds(rows)
+            for s, e in zip(rb[:-1], rb[1:]):
+                sink.emit_row(int(rows[s]), keys[s:e] - rows[s] * V, counts[s:e])
     return {"row_batches": batches}

@@ -13,7 +13,11 @@ regression test). Drivers enable it with ``--trace-out`` /
 ``--metrics-interval`` (see launch/cooc_run.py, launch/cooc_serve.py), and
 benchmarks/tests use :func:`scoped`.
 
-See docs/observability.md for the span taxonomy and metric names.
+Spans are stamped in unix time (``Registry.epoch_unix`` plus each event's
+``ts_us``), the clock of ``torch.profiler``'s device traces. The spans,
+counters and histograms the port records, and the benchmark metrics that
+read them, are listed in PERF.md §3 at the root of the repository
+(docs/observability.md describes the JAX package's).
 """
 
 from repro_torch.obs.export import (

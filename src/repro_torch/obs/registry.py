@@ -10,8 +10,8 @@ instrumented hot paths cost one attribute check when nothing is listening
 doubles as the overhead regression test).
 
 Spans nest per thread (a thread-local stack provides parent/depth), carry
-attributes, and land in the event log as Chrome ``trace_event``-shaped
-records; exporters (obs/export.py) turn the log into a ``chrome://tracing``
+attributes, and land in the event log, which ``span_events()`` returns as
+Chrome ``trace_event``-shaped records; exporters (obs/export.py) turn the log into a ``chrome://tracing``
 / Perfetto file and the metric tables into Prometheus text.
 
 Example::
@@ -70,32 +70,44 @@ NULL_METRIC = _NullMetric()
 class Span:
     """A nested wall-time span (context manager).
 
-    Timing uses ``time.perf_counter`` relative to the registry's epoch;
-    nesting depth comes from a per-thread stack, so concurrent client
-    threads each get a coherent span tree. ``set(**attrs)`` adds/overrides
-    attributes mid-flight (e.g. a result count known only at the end).
+    Each edge reads unix time once, in integer nanoseconds
+    (``time.time_ns``): the clock ``torch.profiler`` puts a device trace
+    on, so a span and the device operations it waits for compare without
+    a conversion. Nesting depth comes from a per-thread stack, so
+    concurrent client threads each get a coherent span tree.
+    ``set(**attrs)`` adds/overrides attributes mid-flight (e.g. a result
+    count known only at the end). A span opened by :meth:`Registry.timed`
+    also records its duration, in seconds, into a histogram.
     """
 
-    __slots__ = ("_reg", "name", "attrs", "_t0", "_depth")
+    __slots__ = ("_reg", "name", "attrs", "_hist", "_stack", "_t0", "_depth")
 
-    def __init__(self, reg: "Registry", name: str, attrs: dict):
+    def __init__(self, reg: "Registry", name: str, attrs: dict, hist=None):
         self._reg = reg
         self.name = name
         self.attrs = attrs
-        self._t0 = 0.0
-        self._depth = 0
+        self._hist = hist
 
     def __enter__(self) -> "Span":
-        stack = self._reg._stack()
+        stack = self._stack = self._reg._stack()
         self._depth = len(stack)
         stack.append(self.name)
-        self._t0 = time.perf_counter()
+        self._t0 = time.time_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        end = time.perf_counter()
-        self._reg._stack().pop()
-        self._reg._record_span(self, self._t0, end - self._t0)
+        dur = time.time_ns() - self._t0
+        self._stack.pop()
+        reg = self._reg
+        if len(reg._events) < reg.max_events:
+            # a tuple of plain values: the collector stops tracking it, so
+            # a long log adds no work to the interpreter's collections
+            reg._events.append((self.name, self._t0, dur, threading.get_ident(),
+                                self._depth, self.attrs or None))
+        else:
+            reg.dropped_events += 1
+        if self._hist is not None:
+            self._hist.record(dur / 1e9)
         return False
 
     def set(self, **attrs) -> None:
@@ -123,14 +135,15 @@ class Registry:
         self._counters: dict[str, Counter] = {}
         self._gauges: dict[str, Gauge] = {}
         self._histograms: dict[str, Histogram] = {}
-        self._events: list[dict] = []
+        # (name, start unix ns, ns, thread id, depth, attrs or None) each
+        self._events: list[tuple] = []
         self.dropped_events = 0
         self._lock = threading.Lock()
         self._tls = threading.local()
-        # span timestamps are perf_counter-relative to this epoch; the unix
-        # epoch anchors the trace in wall-clock time for display
-        self._epoch = time.perf_counter()
-        self.epoch_unix = time.time()
+        # span timestamps are unix nanoseconds relative to this epoch:
+        # epoch_unix + ts_us / 1e6 is a span's start in unix seconds
+        self._epoch_ns = time.time_ns()
+        self.epoch_unix = self._epoch_ns / 1e9
 
     # ------------------------------------------------------------ metrics
     def counter(self, name: str) -> Counter:
@@ -173,30 +186,38 @@ class Registry:
             return NULL_SPAN
         return Span(self, name, attrs)
 
+    def timed(self, name: str, hist: str, **attrs):
+        """A span whose duration also lands in histogram ``hist``, in
+        seconds: one pair of clock readings times both, so a stage's
+        latency distribution survives where its events do not (snapshots
+        cross processes without events; a full event log drops spans but
+        never histogram samples). No-op when disabled.
+
+        Example::
+
+            with reg.timed("query/tile", "query/tile_s"):
+                build_tile()
+        """
+        if not self.enabled:
+            return NULL_SPAN
+        return Span(self, name, attrs, self.histogram(hist))
+
     def _stack(self) -> list:
         st = getattr(self._tls, "stack", None)
         if st is None:
             st = self._tls.stack = []
         return st
 
-    def _record_span(self, span: Span, t0: float, dur: float) -> None:
-        if len(self._events) >= self.max_events:
-            self.dropped_events += 1
-            return
-        self._events.append(
-            {
-                "name": span.name,
-                "ts_us": (t0 - self._epoch) * 1e6,
-                "dur_us": dur * 1e6,
-                "tid": threading.get_ident(),
-                "depth": span._depth,
-                "args": span.attrs,
-            }
-        )
-
     def span_events(self) -> list[dict]:
-        """The finished-span log (insertion order = completion order)."""
-        return list(self._events)
+        """The finished-span log (insertion order = completion order):
+        ``name``, ``ts_us`` after ``epoch_unix``, ``dur_us``, ``tid``,
+        ``depth`` and ``args``."""
+        ep = self._epoch_ns
+        return [
+            {"name": n, "ts_us": (t0 - ep) / 1e3, "dur_us": d / 1e3, "tid": tid,
+             "depth": depth, "args": dict(args) if args else {}}
+            for n, t0, d, tid, depth, args in self._events
+        ]
 
     def stage_totals(self, prefix: str = "") -> dict[str, float]:
         """Total seconds per span name (optionally filtered by prefix) —
@@ -209,9 +230,9 @@ class Registry:
             reg.stage_totals("ingest/")    # {'ingest/count': 1.2, ...}
         """
         out: dict[str, float] = {}
-        for e in self._events:
-            if e["name"].startswith(prefix):
-                out[e["name"]] = out.get(e["name"], 0.0) + e["dur_us"] / 1e6
+        for name, _, dur, *_ in self._events:
+            if name.startswith(prefix):
+                out[name] = out.get(name, 0.0) + dur / 1e9
         return out
 
     # ---------------------------------------------------------- snapshots
@@ -251,17 +272,18 @@ class Registry:
         self.dropped_events += snapshot.get("dropped_events", 0)
         events = snapshot.get("events") or []
         if events:
-            shift_us = (
-                snapshot.get("epoch_unix", self.epoch_unix) - self.epoch_unix
-            ) * 1e6
+            epoch_ns = snapshot.get("epoch_unix", self.epoch_unix) * 1e9
             for e in events:
                 if len(self._events) >= self.max_events:
                     self.dropped_events += 1
                     continue
-                e = dict(e, ts_us=e["ts_us"] + shift_us)
+                args = e.get("args") or {}
                 if source is not None:
-                    e["args"] = {**e.get("args", {}), "proc": source}
-                self._events.append(e)
+                    args = {**args, "proc": source}
+                self._events.append((
+                    e["name"], round(epoch_ns + e["ts_us"] * 1e3),
+                    round(e["dur_us"] * 1e3), e["tid"], e["depth"], args or None,
+                ))
 
     # ------------------------------------------------------------ exports
     def chrome_trace(self) -> dict:

@@ -62,10 +62,11 @@ class QueryEngine:
         device: where top-k runs: ``"cuda"`` (the default; raises without a
             card) launches the ``topk_gather`` kernel, ``"cpu"`` runs its
             plain PyTorch version.
-        registry: telemetry registry for ``query/execute`` spans and
-            cache/kernel-dispatch counters; ``None`` uses the process-global
-            one (disabled by default — see repro/obs). Serving workers pass
-            their own so metrics can cross the process boundary.
+        registry: telemetry registry for the ``query/*`` spans and the
+            cache, tile and kernel-dispatch counters; ``None`` uses the
+            process-global one (disabled by default — see repro/obs).
+            Serving workers pass their own so metrics can cross the
+            process boundary.
         report_inputs: before each top-k launch, keep what it reads in
             ``last_inputs`` (:meth:`inputs`), so an answer can be traced to
             its inputs; serving workers send it with each top-k answer.
@@ -126,8 +127,10 @@ class QueryEngine:
         if hit is not None:
             self._cache.move_to_end(t)
             self.stats["cache_hits"] += 1
+            self.registry.counter("query.cache_hits").inc()
             return hit
         self.stats["cache_misses"] += 1
+        self.registry.counter("query.cache_misses").inc()
         ids, cnts = self.store.neighbours(t)
         row = (np.asarray(ids, dtype=np.int64), np.asarray(cnts, dtype=np.int64))
         self._cache[t] = row
@@ -175,7 +178,6 @@ class QueryEngine:
 
         reg = self.registry
         qstats: dict | None = {} if reg.enabled else None
-        hits0, misses0 = self.stats["cache_hits"], self.stats["cache_misses"]
         with reg.span("query/execute", requests=len(reqs), kernel=self.kernel):
             execute_groups(self, coalesce(list(enumerate(reqs))), emit, qstats)
         if qstats is not None:
@@ -184,12 +186,6 @@ class QueryEngine:
                 # topk_launches / pair_launches are the kernel-dispatch
                 # counters; the rest are per-query volumes
                 reg.counter(f"query.{key}").inc(n)
-            reg.counter("query.cache_hits").inc(
-                self.stats["cache_hits"] - hits0
-            )
-            reg.counter("query.cache_misses").inc(
-                self.stats["cache_misses"] - misses0
-            )
         if errors:
             raise ValueError(errors[min(errors)])
         out = []
@@ -266,22 +262,30 @@ class QueryEngine:
 
     def _tile(self, terms: np.ndarray) -> tuple[tuple, int, int]:
         """:meth:`tile`, with the ``num_docs`` and manifest generation of
-        the dfs it holds: what a launch over it must score with."""
-        rows = [self._row(int(t)) for t in terms]
-        L = max((len(r[0]) for r in rows), default=0)
-        # round the pad length up to a power of two (few distinct shapes)
-        L = max(8, 1 << (L - 1).bit_length()) if L else 8
-        B = len(terms)
-        ids = np.full((B, L), -1, dtype=np.int64)
-        cnts = np.zeros((B, L), dtype=np.int64)
-        for b, (rids, rcnts) in enumerate(rows):
-            ids[b, : len(rids)] = rids
-            cnts[b, : len(rids)] = rcnts
-        df, num_docs, generation = self._view
-        df_n = np.where(ids >= 0, np.maximum(df[np.maximum(ids, 0)], 1), 1)
-        df_t = np.maximum(df[terms], 1)
-        # int32 on the device, as the reference's x64-off conversion did
-        tile = tuple(a.astype(np.int32) for a in (ids, cnts, df_t, df_n))
+        the dfs it holds: what a launch over it must score with. Timed as
+        ``query/tile``; counts its ``B·L`` cells in ``query.tile_cells`` and
+        the candidates its rows hold in ``query.tile_cells_valid``."""
+        reg = self.registry
+        with reg.timed("query/tile", "query/tile_s"):
+            rows = [self._row(int(t)) for t in terms]
+            L = max((len(r[0]) for r in rows), default=0)
+            # round the pad length up to a power of two (few distinct shapes)
+            L = max(8, 1 << (L - 1).bit_length()) if L else 8
+            B = len(terms)
+            ids = np.full((B, L), -1, dtype=np.int64)
+            cnts = np.zeros((B, L), dtype=np.int64)
+            valid = 0
+            for b, (rids, rcnts) in enumerate(rows):
+                ids[b, : len(rids)] = rids
+                cnts[b, : len(rids)] = rcnts
+                valid += len(rids)
+            df, num_docs, generation = self._view
+            df_n = np.where(ids >= 0, np.maximum(df[np.maximum(ids, 0)], 1), 1)
+            df_t = np.maximum(df[terms], 1)
+            # int32 on the device, as the reference's x64-off conversion did
+            tile = tuple(a.astype(np.int32) for a in (ids, cnts, df_t, df_n))
+        reg.counter("query.tile_cells").inc(B * L)
+        reg.counter("query.tile_cells_valid").inc(valid)
         return tile, num_docs, generation
 
     def inputs(self, tile, num_docs: int, generation: int) -> dict:
@@ -313,20 +317,26 @@ class QueryEngine:
     def _topk_batch(
         self, terms: np.ndarray, k: int, score: str
     ) -> tuple[np.ndarray, np.ndarray]:
-        """The batched gather + score + select launch (validated inputs)."""
+        """The batched gather + score + select launch (validated inputs),
+        timed in three spans with histograms of their seconds:
+        ``query/tile`` (:meth:`_tile`), ``query/h2d`` (the tile's copies to
+        the device) and ``query/topk`` (the launch and the copies back)."""
         # num_docs comes with the tile's dfs: a refresh from here on reaches
         # neither the launch nor its report
         tile, num_docs, generation = self._tile(terms)
         if self.report_inputs:
             self.last_inputs = self.inputs(tile, num_docs, generation)
-        ids, cnts, df_t, df_n = (torch.from_numpy(a).to(self.device) for a in tile)
+        reg = self.registry
+        with reg.timed("query/h2d", "query/h2d_s"):
+            ids, cnts, df_t, df_n = (torch.from_numpy(a).to(self.device) for a in tile)
         kk = min(k, ids.shape[1])
-        top_ids, top_s = ops.topk_gather(
-            ids, cnts, df_t, df_n,
-            num_docs=num_docs, score=score, k=kk,
-        )
-        top_ids = top_ids.cpu().numpy()
-        top_s = top_s.cpu().numpy()
+        with reg.timed("query/topk", "query/topk_s"):
+            top_ids, top_s = ops.topk_gather(
+                ids, cnts, df_t, df_n,
+                num_docs=num_docs, score=score, k=kk,
+            )
+            top_ids = top_ids.cpu().numpy()
+            top_s = top_s.cpu().numpy()
         if k > top_ids.shape[1]:  # fewer candidates than k: pad out
             pad = k - top_ids.shape[1]
             top_ids = np.pad(top_ids, ((0, 0), (0, pad)), constant_values=-1)

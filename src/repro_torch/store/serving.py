@@ -64,9 +64,11 @@ kernel launches over concurrent traffic:
   check per batch.
 * **Cross-process telemetry** — every worker keeps a private
   :class:`repro_torch.obs.Registry` (queue-wait / execute / request-latency
-  histograms, batch-size distribution, query counters) and publishes
-  picklable snapshots over the stats queue: periodically between
-  micro-batches when ``stats_interval_s`` is set, and always once at exit.
+  histograms, batch-size distribution, query counters, the ``query/*``
+  spans of each top-k launch) and publishes picklable snapshots over the
+  stats queue: periodically between micro-batches when ``stats_interval_s``
+  is set, and always once at exit, that last one with the worker's span
+  events.
   The parent merges them (histograms merge bucket-wise, so p50/p95/p99 are
   true pooled percentiles) into a live ``server.stats()`` — no shared
   memory, no extra sockets. A worker that dies mid-flight costs its last
@@ -290,9 +292,11 @@ class _FaultyChannel:
         self._q.put(item)
 
 
-def _worker_payload(stats: dict, engine, registry, incarnation: int = 0) -> dict:
+def _worker_payload(stats: dict, engine, registry, incarnation: int = 0,
+                    *, events: bool = False) -> dict:
     """One picklable stats-queue snapshot: the worker's counters dict plus
-    its metrics registry snapshot (mergeable histograms included). The
+    its metrics registry snapshot (mergeable histograms included; its span
+    events with ``events=True``, which the final snapshot sets). The
     incarnation stamp lets the parent ignore pipe-buffered snapshots from a
     dead incarnation after its replacement has started reporting. The
     worker's device and this process's kernel launches ride along: launch
@@ -305,7 +309,7 @@ def _worker_payload(stats: dict, engine, registry, incarnation: int = 0) -> dict
     out["kernel_launches"] = {k.name: k.launches for k in ops.KERNELS}
     return {
         "stats": out,
-        "metrics": registry.snapshot(),
+        "metrics": registry.snapshot(include_events=events),
         # manifest generation / segment census as this worker sees it; the
         # parent keeps the highest-generation view (a mid-commit sibling may
         # briefly lag by one refresh)
@@ -344,11 +348,12 @@ def _worker_main(
 
     Telemetry rides a private enabled :class:`repro_torch.obs.Registry` (the
     process-global one stays disabled): per-request queue-wait and latency,
-    per-batch execute time and size, query counters via the engine. A
-    ``("snap", id, payload)`` snapshot goes on the stats queue at most every
-    ``stats_interval_s`` seconds (0 = never), and a ``("final", ...)`` one
-    always goes out at exit — so the parent loses at most one interval of
-    data if this process dies."""
+    per-batch execute time and size, query counters and the ``query/*``
+    spans via the engine. A ``("snap", id, payload)`` snapshot goes on the
+    stats queue at most every ``stats_interval_s`` seconds (0 = never), and
+    a ``("final", ...)`` one, with the span events, always goes out at exit
+    — so the parent loses at most one interval of data if this process
+    dies."""
     from repro_torch.store.query import QueryEngine
     from repro_torch.store.segments import Store
 
@@ -474,9 +479,6 @@ def _worker_main(
         _serve_batch(engine, batch, serve_chan, worker_id, stats)
         h_exec.record(time.perf_counter() - t0)
         h_bsz.record(len(batch))
-        reg.gauge("serving/batch_window_occupancy").set(
-            len(batch) / cfg.max_batch
-        )
         t_end = time.time()
         for item in batch:
             t_sub, _dl = envelope_times(item)
@@ -489,7 +491,8 @@ def _worker_main(
             )
             last_pub = time.monotonic()
     stats_q.put(
-        ("final", worker_id, _worker_payload(stats, engine, reg, incarnation))
+        ("final", worker_id,
+         _worker_payload(stats, engine, reg, incarnation, events=True))
     )
 
 
@@ -1218,7 +1221,9 @@ class CoocServer:
         slots that never sent a final snapshot), ``storage`` (codec traffic
         on v2 compressed stores: blocks decoded, block-cache hit rate,
         bloom negative rate — zeros on raw v1), ``metrics`` (the raw merged
-        snapshot — feed it to ``repro_torch.obs.prometheus_text``),
+        snapshot — feed it to ``repro_torch.obs.prometheus_text``; after
+        :meth:`stop` it also holds every worker's span ``events``, on the
+        timeline of its ``epoch_unix``),
         ``per_worker`` (each slot's own counters from its freshest
         snapshot, a dead incarnation's if its replacement has not reported
         or none was spawned, e.g. per-worker ``cache_hit_rate`` under

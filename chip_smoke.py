@@ -187,7 +187,8 @@ without a card, without the repository beside it, or if any phase fails:
       ``launch/train.py``, losses and checkpoints reach no
       ``pl.pallas_call``): the launch counts print 0.
 3. Kernels against their plain PyTorch versions on the card, with
-   ``torch.equal`` (tolerance 0): ``segment_hist`` on path 1's head batch,
+   ``torch.equal`` (tolerance 0): ``segment_hist`` on path 1's head batch
+   (over the live ids, as path 1 launches it),
    the first tail batches of path 2 and of ``cooc_run``, a stream whose
    row leaves and re-enters the window, misaligned streams, ragged,
    all-padding and V-1 inputs, each also accumulated into a grid that
@@ -2815,18 +2816,21 @@ def check_segment_hist(c, cd, run_cd) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.core.list_scan import LAUNCH_TOKENS, _device_chunks
+    from repro_torch.core.list_scan import LAUNCH_TOKENS, _device_chunks, live_vocabulary
     from repro_torch.data.index import DeviceIndex
     from repro_torch.data.preprocess import shard_documents
     from repro_torch.kernels import ref
     from repro_torch.kernels.segment_hist import plan, segment_hist_cuda
 
     dev = torch.device("cuda")
-    idx = DeviceIndex.from_collection(c, dev)
+    # path 1 counts over the live ids, renumbered: a (64, Vl) grid
+    _, live_c = live_vocabulary(c)
+    Vl = live_c.vocab_size
+    idx = DeviceIndex.from_collection(live_c, dev)
     rows = 64
     ids, seg = next(_device_chunks(idx, 0, rows, LAUNCH_TOKENS))  # head batch
     shapes = {
-        "path 1 head batch": (ids, seg, rows, VOCAB),
+        "path 1 head batch": (ids, seg, rows, Vl),
         "path 2 first tail batch": first_tail_batch(cd, dev),
         # cooc_run counts shard by shard: its first shard's first tail batch
         "cooc_run first tail batch": first_tail_batch(shard_documents(run_cd, 16)[0], dev),
@@ -2856,7 +2860,7 @@ def check_segment_hist(c, cd, run_cd) -> dict:
             torch.arange(5000, dtype=torch.int32, device=dev) % rows, rows, VOCAB,
         ),
         "row leaves and re-enters the window": (back_ids, back, rows, VOCAB),
-        "misaligned head batch": (ids[1:], seg[1:], rows, VOCAB),
+        "misaligned head batch": (ids[1:], seg[1:], rows, Vl),
     })
     err = 0.0
     for name, (i, s, r, v) in cases.items():
@@ -2897,9 +2901,9 @@ def check_segment_hist(c, cd, run_cd) -> dict:
             "nonzero_cells": nnz,
             "bound_ms": (8 * n + 8 * nnz) / HBM_BYTES_PER_S * 1e3,
         }
-    grid = torch.zeros((rows, VOCAB), dtype=torch.int32, device=dev)
+    grid = torch.zeros((rows, Vl), dtype=torch.int32, device=dev)
     out["plain_ms"] = both_ms(lambda: ref.segment_hist_ref(
-        ids, seg, rows, VOCAB, out=grid), reps=5)
+        ids, seg, rows, Vl, out=grid), reps=5)
     out.update(out["shapes"]["path 1 head batch"])
     return out
 

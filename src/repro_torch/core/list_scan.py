@@ -224,57 +224,87 @@ def _device_chunks(
 LAUNCH_TOKENS = 1 << 26
 
 
+def live_vocabulary(c: Collection) -> tuple[np.ndarray, Collection]:
+    """The ascending ids that occur in ``c`` (int64), and ``c`` with each
+    id renumbered to its rank among them. The map is strictly increasing,
+    so each document's terms stay strictly ascending."""
+    live, terms = np.unique(c.terms, return_inverse=True)
+    return live.astype(np.int64), Collection(c.doc_ptr, terms.astype(np.int32), len(live))
+
+
+def _row_batches(c: Collection, rows_per_batch: int) -> int:
+    """The batches of ``rows_per_batch`` ids of ``c``'s vocabulary whose
+    strict-upper token stream is not empty: those whose ids hold a term
+    that is not the last of its document."""
+    has_suffix = np.ones(len(c.terms), dtype=bool)
+    has_suffix[c.doc_ptr[1:][np.diff(c.doc_ptr) > 0] - 1] = False
+    return int(np.count_nonzero(np.bincount(c.terms[has_suffix] // rows_per_batch)))
+
+
 def count_list_scan_segment(
     c: Collection, sink: PairSink, *, rows_per_batch: int = 64, device: str = "cuda"
 ) -> dict:
     """LIST-SCAN on the device: one batched histogram per primary batch.
 
-    The collection's forward and inverted indexes go to ``device`` once
-    (:class:`DeviceIndex`). For each batch of ``rows_per_batch`` primaries
-    the strict-upper token stream is gathered on the device and counted by
-    ``segment_hist`` into one int32 ``(rows, V)`` grid — the hand-written
-    kernel on ``"cuda"`` (the default), its plain PyTorch version on
-    ``"cpu"``. A batch of more than ``LAUNCH_TOKENS`` tokens is split across
-    several launches into the same grid, which bounds device memory on the
-    head batches. Only the grid's nonzeros cross to the host, as ascending
-    packed keys ``row * V + col`` with their counts.
+    The loop runs over the collection's live vocabulary: the ``Vl`` ids
+    that occur, renumbered by their rank (a strictly increasing map, so
+    each document's terms stay strictly ascending). Their forward and
+    inverted indexes go to ``device`` once (:class:`DeviceIndex`). For each
+    batch of ``rows_per_batch`` live primaries the strict-upper token
+    stream is gathered on the device and counted by ``segment_hist`` into
+    one int32 ``(rows, Vl)`` grid — the hand-written kernel on ``"cuda"``
+    (the default), its plain PyTorch version on ``"cpu"``. A batch of more
+    than ``LAUNCH_TOKENS`` tokens is split across several launches into
+    the same grid, which bounds device memory on the head batches. Only
+    the grid's nonzeros cross to the host, mapped back on the device to
+    ascending packed keys ``row * V + col`` of the original ids, with their
+    counts.
 
     Byte-identical to ``count_list_scan`` in every sink: same rows, same
-    counts, same emission order.
+    counts, same emission order. ``row_batches`` counts the batches of
+    ``rows_per_batch`` ids of the whole vocabulary that hold a token, as
+    the reference's loop does.
 
     Each batch that holds a posting times its steps in three spans, whose
     edges sit at the syncs the loop already has: ``ingest/count_launch``
     (the gather with its token-count read, the grid's fill, the kernel
-    launches), ``ingest/count_select`` (``nonzero`` over the grid and the
-    copies back: the host waits here for the card) and
-    ``ingest/count_emit`` (the sink, with any spill it triggers).
+    launches), ``ingest/count_select`` (``nonzero`` over the grid, the map
+    back and the copies back: the host waits here for the card) and
+    ``ingest/count_emit`` (the sink, with any spill it triggers). The
+    counters ``ingest.count_live_terms`` (``Vl``), ``ingest.count_batches``
+    (batches launched) and ``ingest.count_grid_cells`` (their grids' cells)
+    show how far the live vocabulary shrank the loop.
     """
     from repro_torch.kernels import ops as kops
 
     dev = resolve_device(device)
-    idx = DeviceIndex.from_collection(c, dev)
     V = c.vocab_size
+    live, compact = live_vocabulary(c)
+    Vl = compact.vocab_size
+    live_d = torch.from_numpy(live).to(dev)
+    idx = DeviceIndex.from_collection(compact, dev)
     emit_keys = getattr(sink, "emit_keys", None)
     reg = obs.get_registry()
-    batches = 0
-    for lo in range(0, V, rows_per_batch):
-        hi = min(lo + rows_per_batch, V)
+    batches = cells = 0
+    for lo in range(0, Vl, rows_per_batch):
+        hi = min(lo + rows_per_batch, Vl)
         if idx.term_ptr_host[lo] == idx.term_ptr_host[hi]:
             continue  # no postings: nothing to gather
         grid = None
         with reg.span("ingest/count_launch"):
             for tokens, seg in _device_chunks(idx, lo, hi, LAUNCH_TOKENS):
                 if grid is None:
-                    grid = torch.zeros((hi - lo, V), dtype=torch.int32, device=dev)
-                kops.segment_hist(tokens, seg, num_rows=hi - lo, vocab=V, out=grid)
+                    grid = torch.zeros((hi - lo, Vl), dtype=torch.int32, device=dev)
+                kops.segment_hist(tokens, seg, num_rows=hi - lo, vocab=Vl, out=grid)
         if grid is None:
             continue
         batches += 1
+        cells += (hi - lo) * Vl
         with reg.span("ingest/count_select"):
             flat = grid.view(-1)
             nz = torch.nonzero(flat).squeeze(1)
             counts = flat[nz].cpu().numpy().astype(np.int64)
-            keys = nz.cpu().numpy() + np.int64(lo) * V
+            keys = (live_d[lo + nz // Vl] * V + live_d[nz % Vl]).cpu().numpy()
         with reg.span("ingest/count_emit"):
             if emit_keys is not None:
                 emit_keys(keys, counts)
@@ -283,4 +313,7 @@ def count_list_scan_segment(
             rb = group_bounds(rows)
             for s, e in zip(rb[:-1], rb[1:]):
                 sink.emit_row(int(rows[s]), keys[s:e] - rows[s] * V, counts[s:e])
-    return {"row_batches": batches}
+    reg.counter("ingest.count_live_terms").inc(Vl)
+    reg.counter("ingest.count_batches").inc(batches)
+    reg.counter("ingest.count_grid_cells").inc(cells)
+    return {"row_batches": _row_batches(c, rows_per_batch)}

@@ -363,6 +363,40 @@ def test_list_scan_segment_on_the_card_equals_the_host(cuda, monkeypatch):
     assert np.array_equal(on_card.mat, on_host.mat)
 
 
+class _KeySink:
+    """Records every ``emit_keys`` call in order."""
+
+    def __init__(self):
+        self.keys, self.counts = [], []
+
+    def emit_keys(self, keys, counts):
+        self.keys.append(np.asarray(keys).copy())
+        self.counts.append(np.asarray(counts).copy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("launch_tokens", [1 << 26, 3000])
+def test_list_scan_segment_on_a_gapped_vocabulary_equals_the_host(
+    cuda, monkeypatch, launch_tokens
+):
+    """Ids spread with gaps over a WT10G-sized vocabulary: the card's loop
+    over the live terms emits the host's keys and counts, call for call."""
+    monkeypatch.setattr(list_scan, "LAUNCH_TOKENS", launch_tokens)
+    V = 5_750_000
+    c = synthetic_zipf_collection(300, vocab=4000, mean_len=60, seed=6)
+    c = dataclasses.replace(c, terms=(c.terms.astype(np.int64) * 1_409 + 17)
+                            .astype(np.int32), vocab_size=V)
+    on_card, on_host = _KeySink(), _KeySink()
+    before = SEGMENT_HIST.launches
+    stats = count_list_scan_segment(c, on_card, rows_per_batch=64)
+    assert SEGMENT_HIST.launches > before
+    assert stats == count_list_scan_segment(c, on_host, rows_per_batch=64, device="cpu")
+    assert len(on_card.keys) == len(on_host.keys) > 1
+    for got, want in zip(on_card.keys + on_card.counts, on_host.keys + on_host.counts):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert bool((np.diff(np.concatenate(on_card.keys)) > 0).all())
+
+
 @pytest.mark.cuda
 def test_auto_builds_on_the_card(cuda, tmp_path):
     """``count_to_store("auto", ...)`` with the default device counts through

@@ -20,9 +20,11 @@ from repro.core.oracle import brute_force_counts  # noqa: E402
 from repro.core.plan import CountJob as JCountJob  # noqa: E402
 from repro.core.plan import Planner as JPlanner  # noqa: E402
 from repro.core.types import DenseSink as JDenseSink  # noqa: E402
+from repro.data.corpus import Collection as JCollection  # noqa: E402
 from repro.data.corpus import synthetic_zipf_collection  # noqa: E402
 from repro.store import QueryEngine as JQueryEngine  # noqa: E402
 from repro.store import Store as JStore  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.convert import collection_from_numpy  # noqa: E402
 from repro_torch.core import cooc, list_scan  # noqa: E402
 from repro_torch.core.list_scan import count_list_scan_segment  # noqa: E402
@@ -63,16 +65,154 @@ def test_segment_counts_match_jax_and_oracle(
     docs, vocab, seed, rows_per_batch, launch_tokens, monkeypatch
 ):
     monkeypatch.setattr(list_scan, "LAUNCH_TOKENS", launch_tokens)
-    jc, c = _pair(docs, vocab, seed)
-    sink = DenseSink(vocab)
+    _assert_segment_matches_jax_and_oracle(*_pair(docs, vocab, seed), rows_per_batch)
+
+
+def _assert_segment_matches_jax_and_oracle(jc, c, rows_per_batch):
+    sink = DenseSink(c.vocab_size)
     stats = count_list_scan_segment(
         c, sink, rows_per_batch=rows_per_batch, device="cpu"
     )
-    jsink = JDenseSink(vocab)
+    jsink = JDenseSink(c.vocab_size)
     jstats = jax_segment(jc, jsink, rows_per_batch=rows_per_batch, use_kernel=False)
     assert np.array_equal(sink.mat, jsink.mat)
     assert np.array_equal(sink.mat, np.triu(brute_force_counts(jc), 1))
     assert stats == jstats
+
+
+def _gapped(docs, live, stride, vocab, seed, mean_len=30):
+    """A Zipf collection over ``live`` terms with every id multiplied by
+    ``stride``, in a vocabulary of ``vocab`` ids: most ids never occur."""
+    jc = synthetic_zipf_collection(docs, vocab=live, mean_len=mean_len, seed=seed)
+    terms = (jc.terms.astype(np.int64) * stride).astype(np.int32)
+    assert int(terms.max()) < vocab
+    jc = JCollection(jc.doc_ptr, terms, vocab)
+    return jc, collection_from_numpy(jc.doc_ptr, jc.terms, vocab)
+
+
+@pytest.mark.parametrize(
+    "docs,live,stride,vocab,seed,rows_per_batch,launch_tokens",
+    [
+        (120, 100, 7, 700, 12, 64, 1 << 26),    # every id ≡ 0 mod 7
+        (120, 100, 7, 700, 13, 64, 300),        # batches split in chunks
+        (40, 1500, 1, 1500, 14, 128, 1 << 26),  # a Zipf draw: the tail unused
+        (80, 120, 5, 601, 15, 64, 1),           # one posting per launch
+    ],
+)
+def test_segment_counts_on_a_gapped_vocabulary_match_jax_and_oracle(
+    docs, live, stride, vocab, seed, rows_per_batch, launch_tokens, monkeypatch
+):
+    monkeypatch.setattr(list_scan, "LAUNCH_TOKENS", launch_tokens)
+    jc, c = _gapped(docs, live, stride, vocab, seed)
+    assert len(np.unique(c.terms)) < vocab // 2
+    _assert_segment_matches_jax_and_oracle(jc, c, rows_per_batch)
+
+
+class _KeySink:
+    """Records every emission in order: packed keys and counts."""
+
+    def __init__(self, vocab):
+        self.vocab, self.keys, self.counts = vocab, [], []
+
+    def emit_keys(self, keys, counts):
+        self.keys.append(np.asarray(keys, dtype=np.int64))
+        self.counts.append(np.asarray(counts, dtype=np.int64))
+
+    def emit_row(self, primary, secondaries, counts):
+        self.emit_keys(np.int64(primary) * self.vocab + secondaries, counts)
+
+    def stream(self):
+        return np.concatenate(self.keys), np.concatenate(self.counts)
+
+
+def test_segment_emits_the_host_list_scans_keys_in_order_on_a_gapped_vocabulary():
+    """The packed keys reach the sink ascending, each pair once, with the
+    counts and in the order the host ``list-scan`` emits them."""
+    _, c = _gapped(90, 500, 11, 1_000_000, 16)
+    got, want = _KeySink(1_000_000), _KeySink(1_000_000)
+    count_list_scan_segment(c, got, rows_per_batch=8, device="cpu")
+    list_scan.count_list_scan(c, want, rows_per_batch=4096)
+    gk, gc = got.stream()
+    wk, wc = want.stream()
+    assert len(gk) > 0 and bool((np.diff(gk) > 0).all())
+    assert np.array_equal(gk, wk) and np.array_equal(gc, wc)
+
+
+@pytest.mark.parametrize(
+    "docs,vocab,seed,mean_len,all_live",
+    [
+        (36, 1_000_000, 17, 80, False),  # past the dense cap, ~0.3% of ids live
+        (60, 40, 0, 30, True),           # every id live: the identity map
+    ],
+)
+def test_segment_store_bytes_match_host_list_scan(
+    docs, vocab, seed, mean_len, all_live, tmp_path
+):
+    _, c = _pair(docs, vocab, seed, mean_len=mean_len)
+    assert (len(np.unique(c.terms)) == vocab) == all_live
+    _, a = cooc.count_to_store("list-scan", c, str(tmp_path / "a"), device="cpu")
+    _, b = cooc.count_to_store(
+        "list-scan-segment", c, str(tmp_path / "b"), device="cpu"
+    )
+    assert a.nnz == b.nnz > 0
+    assert _same_segments(a.path, b.path)
+
+
+def _counted(c, rows_per_batch):
+    with obs.scoped() as reg:
+        stats = count_list_scan_segment(
+            c, DenseSink(c.vocab_size), rows_per_batch=rows_per_batch, device="cpu"
+        )
+    names = [e["name"] for e in reg.span_events()]
+    return stats, reg.snapshot()["counters"], names
+
+
+@pytest.mark.parametrize("docs,vocab,seed", [(60, 40, 0), (90, 1_000_000, 16)])
+def test_live_vocabulary_renumbers_by_rank(docs, vocab, seed):
+    """Live ids ascend, each term maps back to itself, each document stays
+    strictly ascending, and a vocabulary that is all live maps to itself."""
+    _, c = _pair(docs, vocab, seed)
+    live, lc = list_scan.live_vocabulary(c)
+    assert live.dtype == np.int64 and lc.terms.dtype == np.int32
+    assert lc.vocab_size == len(live) and bool((np.diff(live) > 0).all())
+    assert np.array_equal(live[lc.terms], c.terms)
+    assert np.array_equal(lc.doc_ptr, c.doc_ptr)
+    for d in range(lc.num_docs):
+        assert bool((np.diff(lc.doc(d)) > 0).all())
+    if len(live) == vocab:
+        assert np.array_equal(lc.terms, c.terms)
+
+
+def test_segment_counters_on_a_known_collection():
+    # live ids 3, 7, 10 | 500, 999, 1200 | 1500, 1700 in batches of 3: the
+    # first two batches hold tokens, the third only documents' last terms
+    docs = [[3, 10, 500], [10, 500, 999], [7], [999, 1200], [1500], [1700]]
+    ptr = np.cumsum([0] + [len(d) for d in docs])
+    terms = np.concatenate(docs)
+    c = collection_from_numpy(ptr, terms, 2000)
+    stats, counters, names = _counted(c, 3)
+    assert counters["ingest.count_live_terms"] == 8
+    assert counters["ingest.count_batches"] == 2
+    assert counters["ingest.count_grid_cells"] == 3 * 8 + 3 * 8
+    # the reference counts the batches of 3 ids of all 2,000 that hold a
+    # token: those of ids 3, 10, 500 (in the second document) and 999
+    jc = JCollection(ptr, terms.astype(np.int32), 2000)
+    assert stats == jax_segment(jc, JDenseSink(2000), rows_per_batch=3,
+                                use_kernel=False) == {"row_batches": 4}
+    # one select and one emit span a batch launched; a launch span also
+    # for the batch whose postings held no token
+    assert names.count("ingest/count_select") == names.count("ingest/count_emit") == 2
+    assert names.count("ingest/count_launch") == 3
+
+
+def test_segment_counters_when_every_id_is_live():
+    _, c = _pair(60, 40, 0)
+    assert len(np.unique(c.terms)) == 40
+    stats, counters, names = _counted(c, 16)
+    launched = names.count("ingest/count_select")
+    assert counters["ingest.count_live_terms"] == 40
+    assert counters["ingest.count_batches"] == launched == 3 == stats["row_batches"]
+    assert counters["ingest.count_grid_cells"] == (16 + 16 + 8) * 40
 
 
 def test_segment_counts_match_host_list_scan_through_spill_sink(tmp_path):

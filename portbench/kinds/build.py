@@ -5,8 +5,10 @@ into a fresh store.
 Job ``i`` counts documents ``[n·i, n·(i+1))`` of a collection of
 ``n · jobs`` documents (``n`` is the configuration's ``num_docs``). Jobs
 start until the window's seconds have passed or all have committed; a job
-in flight finishes and counts. The stores live under ``TMPDIR`` and are
-compared with the reference after the window, then deleted.
+in flight finishes and counts. ``jobs`` is a cap set above what a window
+holds, so that the window ends by its seconds; the log says which ended it.
+The stores live under ``TMPDIR`` and are compared with the reference after
+the window, then deleted.
 """
 
 from __future__ import annotations
@@ -94,6 +96,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str, clock) -> dic
                 prof.stop()
         window_s = commits[-1] - t0
         done = len(commits)
+        ended = (f"by seconds, {jobs - done} jobs uncommitted" if done < jobs
+                 else "by the cap: every job committed")
         out = {
             "setup_s": setup_s,
             "window_s": window_s,
@@ -102,7 +106,9 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str, clock) -> dic
             "memory_peak_bytes": int(torch.cuda.max_memory_reserved()) if cuda else 0,
             "log": [f"jobs committed {done} in {window_s:.4f} s, each "
                     + ", ".join(f"{b - a:.3f}" for a, b in zip([t0] + commits, commits))
-                    + " s", f"this process used {cpu1 - cpu0:.2f} s of CPU in the window"],
+                    + f" s; the window ended {ended}",
+                    f"this process used {cpu1 - cpu0:.2f} s of CPU in the window",
+                    f"stores held under TMPDIR until the comparison {_tree_bytes(work)} bytes"],
         }
         ops_ = []
         if prof is not None:
@@ -135,11 +141,17 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str, clock) -> dic
             "jobs": job_work, "ops": ops_,
             "window": (t0_unix, t1_unix),
             "spans": reg.span_events() if reg is not None else [],
+            "counters": reg.snapshot()["counters"] if reg is not None else {},
             "epoch_unix": reg.epoch_unix if reg is not None else 0.0,
         }
         return out
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def _tree_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
 
 
 def breakdown(out: dict) -> dict:

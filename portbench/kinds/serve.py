@@ -20,37 +20,10 @@ import time
 
 import numpy as np
 
-from yardstick import control as C, gen, judge, reference as R, trace as T
+from yardstick import control as C, gen, judge, reference as R, spawned, trace as T
 
 REQUEST_TIMEOUT_S = 60.0  # a request unanswered this long never answers
 POOL_BATCHES = 2048       # batches drawn for each client; it cycles through them
-
-HOOK_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                        "workerhook")
-
-
-class _TracedSpawn:
-    """While open, spawned workers start with ``workerhook`` on their path
-    and write their device traces to ``trace_dir``."""
-
-    def __init__(self, trace_dir: str | None):
-        self.trace_dir = trace_dir
-
-    def __enter__(self):
-        self.saved = {k: os.environ.get(k) for k in ("PYTHONPATH", "PORTBENCH_WORKER_TRACE")}
-        if self.trace_dir:
-            pp = self.saved["PYTHONPATH"]
-            os.environ["PYTHONPATH"] = HOOK_DIR + (os.pathsep + pp if pp else "")
-            os.environ["PORTBENCH_WORKER_TRACE"] = self.trace_dir
-        return self
-
-    def __exit__(self, *exc):
-        for k, v in self.saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
 
 def _memory_sampler(cuda: bool):
     """A thread that keeps the card's highest memory in use by every
@@ -84,6 +57,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str, clock) -> dic
     draw = gen.SAMPLERS[mix["terms"]](df, mix)
     work = tempfile.mkdtemp(prefix="portbench-", dir=tempfile.gettempdir())
     trace_dir = os.path.join(work, "worker-traces") if trace and cuda else None
+    memory_dir = os.path.join(work, "worker-memory") if trace and cuda else None
     server = None
     try:
         store_path = os.path.join(work, "store")
@@ -92,7 +66,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str, clock) -> dic
             torch.cuda.empty_cache()
         if trace_dir:
             os.makedirs(trace_dir)
-        with _TracedSpawn(trace_dir):
+            os.makedirs(memory_dir)
+        with spawned.WorkerHook(trace_dir, memory_dir):
             server = CoocServer(
                 store_path, workers=cfg["serve_workers"],
                 batch_window_ms=cfg["batch_window_ms"],
@@ -185,6 +160,10 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str, clock) -> dic
         ops_ = []
         if trace_dir:
             ops_ = T.clip(T.read_trace_dir(trace_dir), t0_unix, t1_unix)
+            out["log"].append(
+                f"workers' own allocator peaks by card {spawned.memory_by_card(memory_dir)}, "
+                f"device operations by card "
+                f"{ {c: len(o) for c, o in T.ops_by_card(trace_dir).items()} }")
         out["ctx"] = {
             "base": base, "final": final,
             "latency_s": lat, "ops": ops_, "window": (t0_unix, t1_unix),
@@ -213,11 +192,14 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str, clock) -> dic
 
 def breakdown(out: dict) -> dict:
     """The device operations with most time in the workers, and the longest
-    stretches in which none ran: the workers' host work."""
+    stretches in which none ran, each named by the innermost worker span
+    open in it: the span events the workers ship with their final
+    snapshots."""
     ctx = out["ctx"]
+    metrics = ctx["final"].get("metrics", {})
+    label = T.innermost_span(metrics.get("events", []), metrics.get("epoch_unix", 0.0))
     return {"device_ops": T.top_ops(ctx["ops"]),
-            "idle_gaps": T.idle_gaps(ctx["ops"], *ctx["window"],
-                                     lambda a, b: "serving workers' host work (tile, queues)")}
+            "idle_gaps": T.idle_gaps(ctx["ops"], *ctx["window"], label)}
 
 
 def control(cell, seed: int) -> dict:

@@ -72,6 +72,29 @@ def metrics_of(cell, out: dict, trace: bool) -> dict:
     return res
 
 
+def memory_peak(peak) -> int:
+    """``memory_peak_bytes``: a kind's one number, or the fullest card's
+    peak where it gives one a card (a list, or a dict by card)."""
+    if isinstance(peak, dict):
+        peak = list(peak.values())
+    return int(max(peak)) if isinstance(peak, (list, tuple)) else int(peak)
+
+
+def traced_device(cell, ctx: dict) -> dict:
+    """``busy_s`` and ``window_s`` of a traced run. One card: the busy
+    seconds of ``ctx["ops"]``. Several: each card's own busy seconds from
+    ``ctx["ops_by_card"]`` (``busy_s_by_card``) and their mean over the
+    cell's cards, so that the idle share is the cards' mean idle share."""
+    from yardstick import trace as T
+
+    t0, t1 = ctx["window"]
+    if cell.chips == 1:
+        return {"busy_s": T.busy_s(ctx["ops"]), "window_s": t1 - t0}
+    by_card = T.busy_s_by_card(ctx["ops_by_card"], cell.chips)
+    return {"busy_s": sum(by_card.values()) / len(by_card), "window_s": t1 - t0,
+            "busy_s_by_card": {str(c): s for c, s in by_card.items()}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", required=True)
@@ -106,7 +129,7 @@ def main(argv=None) -> int:
         return 3
     device = {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": cell.chips, "memory_peak_bytes": out["memory_peak_bytes"],
+        "count": cell.chips, "memory_peak_bytes": memory_peak(out["memory_peak_bytes"]),
     }
     result = {
         "correct": bool(out["correct"]),
@@ -116,11 +139,7 @@ def main(argv=None) -> int:
         "device": device,
     }
     if args.trace:
-        from yardstick import trace as T
-
-        t0, t1 = out["ctx"]["window"]
-        device["busy_s"] = T.busy_s(out["ctx"]["ops"])
-        device["window_s"] = t1 - t0
+        device.update(traced_device(cell, out["ctx"]))
         result["breakdown"] = cells.kind_module(cell.mix["kind"]).breakdown(out)
     result["checks"] = judge.report(out["numbers"])
     for name, c in result["checks"].items():

@@ -23,8 +23,10 @@ def manifest():
         return json.load(f)
 
 
-def test_manifest_keys_and_names():
-    m = manifest()
+def check_contract(m):
+    """The contract's checks of a manifest: keys, names, bounds, and the
+    cells on four chips, at most a quarter of them (rounded down) and one
+    always."""
     assert set(m) == {"command", "paths", "run_seconds", "configs", "workloads",
                       "end_to_end", "per_layer"}
     assert m["paths"] == ["portbench"] and 1 <= m["run_seconds"] <= 51
@@ -34,7 +36,9 @@ def test_manifest_keys_and_names():
         assert all(NAME.match(k) for k in c["reduced"])
     for w in m["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert NAME.match(w["name"]) and w["chips"] == 1 and len(w["why"]) <= 200
+        assert NAME.match(w["name"]) and w["chips"] in (1, 4) and len(w["why"]) <= 200
+    four = sum(w["chips"] == 4 for w in m["workloads"])
+    assert four <= max(1, len(m["workloads"]) // 4), f"{four} cells on 4 chips"
     for x in m["end_to_end"] + m["per_layer"]:
         assert NAME.match(x["name"]) and UNIT.match(x["unit"])
         assert x["better"] in ("lower", "higher")
@@ -42,6 +46,40 @@ def test_manifest_keys_and_names():
         assert x["source"] in ("host_clock", "device_trace") and 0.01 <= x["bound"] <= 0.25
     names = [x["name"] for x in m["end_to_end"] + m["per_layer"]]
     assert len(names) == len(set(names))
+
+
+def test_manifest_keys_and_names():
+    check_contract(manifest())
+
+
+def _with_cells(n_four: int, n_one: int = 0) -> dict:
+    """A copy of the manifest with ``n_four`` more cells on four chips and
+    ``n_one`` more on one."""
+    m = manifest()
+    for i in range(n_four + n_one):
+        m["workloads"].append({"name": f"wt10g.extra{i}", "config": "wt10g",
+                               "traffic": "build", "chips": 4 if i < n_four else 1,
+                               "why": "an added cell"})
+    return m
+
+
+@pytest.mark.parametrize("n_four,n_one", [(1, 0), (2, 5)])
+def test_contract_takes_four_chip_cells_within_the_rule(n_four, n_one):
+    """One cell on four chips is always allowed; two once there are 8 cells."""
+    check_contract(_with_cells(n_four, n_one))
+
+
+@pytest.mark.parametrize("n_four,n_one", [(2, 0), (3, 5)])
+def test_contract_refuses_one_four_chip_cell_more(n_four, n_one):
+    with pytest.raises(AssertionError, match="cells on 4 chips"):
+        check_contract(_with_cells(n_four, n_one))
+
+
+def test_contract_refuses_other_chip_counts():
+    m = _with_cells(0, 1)
+    m["workloads"][-1]["chips"] = 2
+    with pytest.raises(AssertionError):
+        check_contract(m)
 
 
 @pytest.mark.parametrize("workload", [w["name"] for w in manifest()["workloads"]])

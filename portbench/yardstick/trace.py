@@ -7,7 +7,11 @@
 * Device operations come from a ``torch.profiler`` Chrome trace that
   recorded the card's activity: each kernel, copy and fill with its start
   as unix seconds (the trace's ``ts`` plus its ``baseTimeNanoseconds``) and
-  its duration.
+  its duration. Each belongs to one card: its ``args.device`` (else the
+  event's ``pid``, which the profiler sets to the card's index).
+  :func:`read_trace_dir` puts every operation on one timeline, which is
+  right for one card; :func:`ops_by_card` keeps a timeline a card, and
+  :func:`busy_s_by_card` reduces each to its own busy seconds.
 """
 
 from __future__ import annotations
@@ -51,17 +55,22 @@ def span_self_s(events: list[dict], names: tuple[str, ...]) -> float:
     return sum(s for n, s in self_times(events) if n in names)
 
 
-def read_chrome_trace(path: str) -> list[tuple[str, float, float]]:
-    """``(name, start unix s, seconds)`` of each device operation in a
-    profiler trace file."""
+def device_events(path: str):
+    """``(card, name, start unix s, seconds)`` of each device operation in a
+    profiler trace file, in the file's order."""
     with open(path) as f:
         doc = json.load(f)
     base_us = doc.get("baseTimeNanoseconds", 0) / 1e3
-    out = []
     for e in doc.get("traceEvents", []):
         if e.get("cat") in DEVICE_CATS and e.get("ph") == "X":
-            out.append((e["name"], (e["ts"] + base_us) / 1e6, e["dur"] / 1e6))
-    return out
+            card = int(e.get("args", {}).get("device", e.get("pid", 0)))
+            yield card, e["name"], (e["ts"] + base_us) / 1e6, e["dur"] / 1e6
+
+
+def read_chrome_trace(path: str) -> list[tuple[str, float, float]]:
+    """``(name, start unix s, seconds)`` of each device operation in a
+    profiler trace file."""
+    return [(n, s, d) for _, n, s, d in device_events(path)]
 
 
 def read_trace_dir(path: str) -> list[tuple[str, float, float]]:
@@ -69,6 +78,22 @@ def read_trace_dir(path: str) -> list[tuple[str, float, float]]:
     for f in sorted(glob.glob(os.path.join(path, "*.json"))):
         ops += read_chrome_trace(f)
     return ops
+
+
+def ops_by_card(path: str) -> dict[int, list[tuple[str, float, float]]]:
+    """``{card: [(name, start unix s, seconds)]}`` of every profiler trace
+    file in directory ``path`` (one a process: a serving worker, a rank),
+    each operation filed under its card, in the order of
+    :func:`read_trace_dir`."""
+    out: dict = {}
+    for f in sorted(glob.glob(os.path.join(path, "*.json"))):
+        for card, n, s, d in device_events(f):
+            out.setdefault(card, []).append((n, s, d))
+    return out
+
+
+def clip_by_card(by_card: dict, t0: float, t1: float) -> dict:
+    return {c: clip(ops, t0, t1) for c, ops in by_card.items()}
 
 
 def clip(ops, t0: float, t1: float):
@@ -95,6 +120,12 @@ def busy_intervals(ops) -> list[tuple[float, float]]:
 
 def busy_s(ops) -> float:
     return sum(b - a for a, b in busy_intervals(ops))
+
+
+def busy_s_by_card(by_card: dict, cards: int) -> dict[int, float]:
+    """Each card's own busy seconds: cards ``0 .. cards - 1``, a card with
+    no operation at 0, and any other card the trace names."""
+    return {c: busy_s(by_card.get(c, ())) for c in sorted(set(range(cards)) | set(by_card))}
 
 
 def op_seconds(ops, needle: str) -> float:
